@@ -4,17 +4,21 @@
 
 Drives humannerf_tpu_torch's serving path (EvalRenderer.render_frame at the
 default model's full width, seeded weights, the synthetic frame) a few
-frames, builds the hand-written kernels from humannerf_tpu_torch/csrc/ and
-holds each against its plain PyTorch version on the card at the shapes the
-serving path gives it. Every phase prints one JSON line; any mismatch,
-non-finite value, zero launch count, build failure or missing CUDA device
-ends the run with a non-zero exit code. The last line is
+frames and its training path (Trainer.train, 6 patches of 32 x 32 rays a
+step, LPIPS + MSE on seeded targets) a few steps, builds the hand-written
+kernels from humannerf_tpu_torch/csrc/ and holds each against its plain
+PyTorch version on the card at the shapes those paths give it. Every phase
+prints one JSON line; any mismatch, non-finite value, zero launch count,
+build failure or missing CUDA device ends the run with a non-zero exit code.
+The last line is
 {"ok": true, "device": {...}} and the line before it lists every kernel
 with its launches, error and times.
 
 Optional: --phases device,build,kernels,... runs a subset (for bring-up);
-the extra phase `profile` (not run by default) traces one frame with
-torch.profiler and prints where its time goes.
+the extra phases `profile` and `profile_train` (not run by default) trace
+one frame / one training step with torch.profiler and print where the time
+goes; `step_accuracy` reads how far each kernel alone moves a bf16 step's
+gradients from the float32 step's.
 """
 
 from __future__ import annotations
@@ -34,15 +38,19 @@ import torch
 from humannerf_tpu_torch import runtime
 from humannerf_tpu_torch.config import make_cfg
 from humannerf_tpu_torch.models.network import HumanNeRF
-from humannerf_tpu_torch.ops import _build, composite, fused_mlp
-from humannerf_tpu_torch.ops.raymarch import raw2outputs
+from humannerf_tpu_torch.ops import (_build, composite, fused_mlp,
+                                     fused_warp)
+from humannerf_tpu_torch.ops.raymarch import raw2outputs, sample_along_rays
 from humannerf_tpu_torch.train import checkpoint as ckpt
 from humannerf_tpu_torch.train.trainer import (FRAME_KEYS, RAY_KEYS,
-                                                EvalRenderer)
+                                                EvalRenderer, Trainer,
+                                                to_device_batch)
 from humannerf_tpu_torch.utils.body import (approx_gaussian_bone_volumes,
                                             body_pose_to_body_RTs,
                                             get_canonical_global_tfms,
                                             skeleton_to_bbox)
+from humannerf_tpu_torch.utils.tree import (flat_grads, flat_leaves, leafify,
+                                            rel_l2)
 
 # published dense peaks of one H100 SXM (NVIDIA data sheet)
 PEAK_BF16_FLOPS = 989e12
@@ -50,10 +58,15 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
 ALL_PHASES = ("device", "build", "kernels", "render", "render_f32",
-              "render_composite", "checkpoint", "ignore_non_rigid")
+              "render_composite", "checkpoint", "ignore_non_rigid", "train",
+              "train_f32", "train_resume")
+EXTRA_PHASES = ("profile", "profile_train", "step_accuracy")
 CHUNK = 8192          # rays per block, as render.py caps it
 N_RAYS = 65536        # rays per frame
-N_FRAMES = 3          # requests, each with its own pose
+N_FRAMES = 2          # requests, each with its own pose
+N_PATCHES, PATCH = 6, 32      # a training step: 6 patches of 32 x 32 rays
+TRAIN_RAYS = N_PATCHES * PATCH * PATCH
+TRAIN_STEPS = 20
 SEED = 0
 
 
@@ -142,13 +155,27 @@ def phase_build():
     t0 = time.time()
     lib = _build.load_library()
     log = _build.build_log()
-    used = [ln.strip() for ln in log.splitlines()
-            if "registers" in ln or "spill" in ln]
+    # ptxas -v: registers, spills and shared memory of every kernel
+    usage, name = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+            for key in ("fused_mlp_bwd_kernel", "fused_mlp_kernel",
+                        "composite", "scatter", "resample"):
+                if key in name:
+                    name = key + ("<bf16>" if "bfloat" in name else
+                                  "<f32>" if "IfE" in name else "")
+                    break
+        elif name and ("registers" in ln or "spill" in ln):
+            usage.setdefault(name, []).append(
+                ln.replace("ptxas info    :", "").strip())
     emit("build", seconds=round(time.time() - t0, 2),
          sources=[os.path.relpath(s) for s in _build.sources()],
          k1_blocks_per_sm={"bf16": lib.fused_mlp_blocks_per_sm(1),
                            "f32": lib.fused_mlp_blocks_per_sm(0)},
-         ptxas=used[-12:])
+         k2_resident_blocks={"bf16": lib.fused_mlp_bwd_grid(1),
+                             "f32": lib.fused_mlp_bwd_grid(0)},
+         ptxas=usage)
 
 
 K1_VARIANTS = (("bf16", torch.bfloat16, False), ("f32", torch.float32, False),
@@ -286,6 +313,455 @@ def phase_kernels(net: HumanNeRF, params: dict, n_rays: int) -> dict:
     return results
 
 
+# ---------------------------------------------------------------------------
+# the backward kernels K2, K3, K4 against their plain versions
+# ---------------------------------------------------------------------------
+
+# Relative L2 error per gradient tensor, kernel vs autograd through the plain
+# version on the same inputs.
+# float32: both sum the same f32 products in another order (the kernels with
+# atomics, whose order changes from run to run). K3 and K4 read ~1e-6; K2 reads
+# 1e-6 without the non-rigid net and up to 3e-3 with it (the canonical
+# embedding's top frequency, 2^9, amplifies the last bits of the offset).
+# bfloat16, K3 and K4: the kernels differentiate the same rounded values as
+# the plain version and differ from it in where the cotangent is rounded;
+# they read ~6e-3.
+# bfloat16, K2: the plain version multiplies bf16-rounded operands in float32
+# with cuBLAS, the kernel on the tensor cores in another order, so the two
+# round many activations and cotangents differently; each is 0.1-0.3 away from
+# the float32 gradient per tensor, and about as far from the other. A direct
+# limit that wide would prove little, so K2 in bf16 is held to the plain
+# float32 gradients instead, per tensor: the kernel may be at most
+# ACCURACY_RATIO times as far from them as the plain bf16 version is, and must
+# point the same way (cosine >= ACCURACY_COS; a gradient of zeros reads 0).
+# The kernel-vs-plain-bf16 distance is printed beside them.
+K2_F32_TOL = 1e-2
+K34_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+ACCURACY_RATIO = 1.5
+ACCURACY_COS = 0.5
+RATIO_FLOOR = 1e-2      # a plain version closer than this counts as this far
+
+
+def cosine(a, b) -> float:
+    a, b = a.detach().float().flatten(), b.detach().float().flatten()
+    return float(torch.dot(a, b) / (a.norm() * b.norm()).clamp_min(1e-30))
+
+
+def accuracy_vs_f32(gk: dict, gp: dict, g32: dict,
+                    limit: float = ACCURACY_RATIO) -> dict:
+    """Per tensor: how far the kernels' bf16 gradients are from the plain
+    float32 ones (relative L2), how far the plain bf16 ones are, the ratio
+    of the two and the kernels' cosine with the float32 gradient. -> the
+    worst tensor by ratio, the extremes, every tensor's row, and under
+    "bad" every tensor over `limit` or under ACCURACY_COS."""
+    rows = {}
+    for k in g32:
+        if float(g32[k].abs().max()) == 0:
+            continue
+        ek, ep = rel_l2(gk[k], g32[k]), rel_l2(gp[k], g32[k])
+        rows[k] = (ek, ep, ek / max(ep, RATIO_FLOOR), cosine(gk[k], g32[k]))
+    worst = max(rows, key=lambda k: rows[k][2])
+    bad = [f"{k}: {r[0]:.4g} from the float32 gradient (cosine {r[3]:.3g}), "
+           f"the plain bf16 version {r[1]:.4g}" for k, r in rows.items()
+           if not (r[2] <= limit and r[3] >= ACCURACY_COS)]
+    return {"worst": worst, "kernel_vs_f32": rows[worst][0],
+            "plain_vs_f32": rows[worst][1], "ratio": rows[worst][2],
+            "max_kernel_vs_f32": max(r[0] for r in rows.values()),
+            "max_plain_vs_f32": max(r[1] for r in rows.values()),
+            "min_cosine": min(r[3] for r in rows.values()),
+            "limit_ratio": limit, "limit_cosine": ACCURACY_COS,
+            "by_tensor": {k: [round(v, 5) for v in r]
+                          for k, r in sorted(rows.items())},
+            "bad": bad}
+
+
+def train_item(cfg, seed: int) -> dict:
+    """A training batch shaped like the dataset's: TRAIN_RAYS rays in
+    N_PATCHES patches, seeded smooth targets."""
+    item = synthetic_item(cfg, TRAIN_RAYS, seed)
+    rng = np.random.RandomState(seed + 100)
+    item["patch_ray_idx"] = np.arange(TRAIN_RAYS, dtype=np.int32).reshape(
+        N_PATCHES, PATCH, PATCH)
+    base = rng.uniform(0.2, 0.8, (N_PATCHES, 1, 1, 3))
+    ramp = np.linspace(-0.15, 0.15, PATCH)[None, :, None, None]
+    item["target_patches"] = np.clip(
+        base + ramp + rng.normal(0, 0.02, (N_PATCHES, PATCH, PATCH, 3)),
+        0, 1).astype(np.float32)
+    return item
+
+
+def training_shapes(net: HumanNeRF, params: dict, item: dict) -> dict:
+    """The tensors a training step hands to K2, K3 and K4 for this frame:
+    what prepare_frame and render_block compute up to each kernel."""
+    dev = net.device
+    cfg = net.cfg
+    S = net.n_samples
+    with torch.no_grad():
+        frame = {k: torch.as_tensor(np.asarray(item[k], np.float32)).to(dev)
+                 for k in FRAME_KEYS if k in item}
+        rays = {k: torch.as_tensor(np.asarray(item[k], np.float32)).to(dev)
+                for k in RAY_KEYS}
+        ctx = net.prepare_frame(params, frame, cfg.eval_iter, train=True)
+        R = rays["rays_o"].shape[0]
+        z = sample_along_rays(rays["near"], rays["far"], S)
+        pts = (rays["rays_o"][:, None] + rays["rays_d"][:, None]
+               * z[..., None]).reshape(-1, 3).contiguous()
+        from humannerf_tpu_torch.ops import liveness as lv
+        t0, t1 = lv.ray_band_intervals(
+            rays["rays_o"], rays["rays_d"], rays["near"], rays["far"],
+            ctx["motion_scale_Rs"], ctx["motion_Ts"],
+            ctx["cnl_bbox_min_xyz"], ctx["cnl_bbox_scale_xyz"],
+            ctx["band_dims"], ctx["band_sup_lo"], ctx["band_sup_hi"],
+            obs_step=ctx["band_obs_step"])
+        live_band = lv.sample_live_mask(z, t0, t1).reshape(-1)
+        U = ctx["scatter_U"]
+        x_skel, fg = fused_warp.sample_packed_volume(
+            fused_warp.build_packed_volume(U), pts, ctx["obs_min"],
+            ctx["obs_max"], live=live_band)
+        fg_rs = fg.reshape(R, S)
+        order, _ = fused_mlp.ray_sort_order(fg_rs, 0.0)
+        xq = x_skel.reshape(R, S, 3)[order].transpose(0, 1).reshape(-1, 3)
+        fgq = fg_rs[order].t().reshape(-1)
+        from humannerf_tpu_torch.models import mweight
+        mw = mweight.decode_mweight_volume(
+            params["mweight_vol_decoder"], frame["motion_weights_priors"],
+            dtype=net.compute_dtype)[:-1].contiguous()
+    return {"x": xq.contiguous(), "fg": fgq,
+            "live": fused_mlp.tile_liveness(fgq, 0.0),
+            "cc": ctx["condition_code"], "U": U, "pts": pts,
+            "live_band": live_band, "obs_min": ctx["obs_min"],
+            "obs_max": ctx["obs_max"], "vols": mw,
+            "Rs": ctx["motion_scale_Rs"], "Ts": ctx["motion_Ts"],
+            "cnl_min": ctx["cnl_bbox_min_xyz"],
+            "cnl_scale": ctx["cnl_bbox_scale_xyz"]}
+
+
+def backward_ms(make_losses, warm: int, iters: int) -> float:
+    """Device time of `.backward()` alone, summed over the (output,
+    cotangent) pairs `make_losses` yields: a fresh forward before each."""
+    total = 0.0
+    for i in range(warm + iters):
+        for out, cot in make_losses():
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out.backward(cot)
+            end.record()
+            torch.cuda.synchronize()
+            if i >= warm:
+                total += start.elapsed_time(end)
+    return total / iters
+
+
+# name, compute type, without the non-rigid net, tile liveness (the training
+# frame's / N = 100 003 all live / N random points, all live), non-rigid
+# output layer (mm-sized offsets as the `train` phase trains with / as initialised, 1e-5),
+# whether the training phases launch this variant. The other two are
+# measurements: they get a line of their own and stay out of the last list.
+K2_VARIANTS = (("bf16", torch.bfloat16, False, "frame", "mm", True),
+               ("f32", torch.float32, False, "frame", "mm", True),
+               ("bf16,skip_nr", torch.bfloat16, True, "frame", "mm", True),
+               ("f32,skip_nr", torch.float32, True, "ragged", "mm", True),
+               ("bf16,all_live", torch.bfloat16, False, "all", "mm", False),
+               ("bf16,initial_offsets", torch.bfloat16, False, "frame",
+                "initial", False))
+PLAIN_CHUNK = 128 * 1024    # samples per call of the plain MLP's backward
+
+
+def plan_like(net: HumanNeRF, dt, skip_nr: bool) -> fused_mlp.Plan:
+    p0 = net.mlp_plans[0]
+    return fused_mlp.Plan(
+        nr_depth=p0.nr_depth, nr_skips=tuple(p0.nr_skips),
+        nr_width=p0.nr_width, nr_multires=p0.nr_multires,
+        cnl_depth=p0.cnl_depth, cnl_skips=(4,), cnl_width=p0.cnl_width,
+        cnl_multires=p0.cnl_multires, skip_nr=skip_nr, compute_dtype=dt)
+
+
+def plain_chunks(plan, p, x, g, alpha, cc, live):
+    """The plain MLP over x in chunks of samples, as (output, cotangent)
+    pairs: its activations at full N would take tens of GB, and gradients
+    add up over samples."""
+    n = x.shape[0]
+    for s0 in range(0, n, PLAIN_CHUNK):
+        xs = x[s0:s0 + PLAIN_CHUNK]
+        lv_ = None if live is None else \
+            live[s0 // fused_mlp.TILE:
+                 -(-(s0 + xs.shape[0]) // fused_mlp.TILE)]
+        yield (fused_mlp.query_points_plain(plan, p, xs.contiguous(), alpha,
+                                            cc, lv_), g[s0:s0 + PLAIN_CHUNK])
+
+
+def mlp_grads(kernel: bool, plan, sub, x, g, alpha, cc, live) -> dict:
+    """dx, the condition code's gradient and every dW / db of one backward
+    through the fused kernels or through the plain version."""
+    p = leafify(sub)
+    xl = x.clone().requires_grad_(True)
+    ccl = cc.clone().requires_grad_(True)
+    if kernel:
+        fused_mlp.query_points_fused(plan, p, xl, alpha, ccl,
+                                     live).backward(g)
+    else:
+        for out, cot in plain_chunks(plan, p, xl, g, alpha, ccl, live):
+            out.backward(cot)
+    gr = flat_grads(p)
+    if ccl.grad is not None:
+        gr["condition_code"] = ccl.grad
+    gr["dx"] = xl.grad
+    return gr
+
+
+def phase_kernels_backward(net: HumanNeRF, params: dict, params_init: dict,
+                           shapes: dict) -> dict:
+    """K2, K3 and K4 against their plain versions at the training step's
+    shapes. Every variant is run and printed before the phase fails, so that
+    one run shows all disagreements."""
+    dev = net.device
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 2)
+    results, bad = {}, []
+    alpha = 4.3
+    cc = shapes["cc"]
+
+    # ---- K2
+    N = shapes["x"].shape[0]
+    g_full = (torch.randn((N, 4), generator=gen) * 0.1).to(dev)
+    x_spread = (torch.randn((N, 3), generator=gen) * 0.5).to(dev)
+    for name, dt, skip_nr, mode, offsets, on_path in K2_VARIANTS:
+        plan = plan_like(net, dt, skip_nr)
+        sub = {k: (params if offsets == "mm" else params_init)[k]
+               for k in ("non_rigid_mlp", "cnl_mlp")}
+        n = 100_003 if mode == "ragged" else N
+        # the frame's points; with every tile live, points spread over the
+        # box: the frame's dead samples all sit at x = 0
+        x = x_spread if mode == "all" else shapes["x"][:n].contiguous()
+        g = g_full[:n].contiguous()
+        live = None if mode in ("ragged", "all") else shapes["live"]
+        live_share = 1.0 if live is None else float(live.float().mean())
+
+        before = fused_mlp.bwd_launches
+        gk = mlp_grads(True, plan, sub, x, g, alpha, cc, live)
+        torch.cuda.synchronize()
+        if fused_mlp.bwd_launches != before + 1:
+            fail(f"K2[{name}]: the backward kernel was not launched")
+        gp = mlp_grads(False, plan, sub, x, g, alpha, cc, live)
+        if skip_nr:
+            gk = {k: v for k, v in gk.items() if k in gp}
+        if set(gk) != set(gp):
+            fail(f"K2[{name}]: gradient sets differ: "
+                 f"{sorted(set(gk) ^ set(gp))}")
+        errs = {k: rel_l2(gk[k], gp[k]) for k in gp
+                if float(gp[k].abs().max()) > 0}
+        finite = all(bool(torch.isfinite(v).all()) for v in gk.values())
+        worst = max(errs, key=errs.get)
+        dx_abs = float((gk["dx"] - gp["dx"]).abs().max())
+        accuracy = None
+        if dt == torch.bfloat16:
+            accuracy = accuracy_vs_f32(gk, gp, mlp_grads(
+                False, plan_like(net, torch.float32, skip_nr), sub, x, g,
+                alpha, cc, live))
+            bad += [f"K2[{name}]: {b}" for b in accuracy.pop("bad")]
+        elif not errs[worst] <= K2_F32_TOL:
+            bad.append(f"K2[{name}]: gradient {worst} is {errs[worst]} "
+                       f"(relative L2) from the plain version's, limit "
+                       f"{K2_F32_TOL}")
+        del gk, gp
+        # the kernel alone, operands prepared as the autograd function does
+        ops = fused_mlp.kernel_operands(
+            plan, sub["non_rigid_mlp"], sub["cnl_mlp"], cc)
+        nets = fused_mlp.pack_kernel_weights(plan, ops, backward=True)
+        ms = time_ms(lambda: fused_mlp.launch_backward(
+            plan, x, g, alpha, live, nets), warm=1, iters=3)
+        # the plain backward over every chunk of the same n samples, summed
+        p = leafify(sub)
+        plain_ms = backward_ms(
+            lambda: plain_chunks(plan, p, x, g, alpha, cc, live), 1, 2)
+        del p
+        n_live = n if live is None else int(live.sum()) * fused_mlp.TILE
+        flops = 3 * n_live * plan.flops_per_sample()
+        w_bytes = sum(t.numel() * (t.element_size() + 4)
+                      for nw in nets.values()
+                      for t in (nw["w_h"] + nw["w_e"] + nw["b"]
+                                + [nw["w_out"], nw["b_out"]])
+                      if t is not None)
+        nbytes = n_live * 28 + n * 12 + w_bytes
+        peak = PEAK_BF16_FLOPS if dt == torch.bfloat16 else PEAK_F32_FLOPS
+        t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+        res = {
+            "name": f"fused_mlp_backward[{name}]", "route": "cuda",
+            "source": "humannerf_tpu_torch/csrc/fused_mlp_bwd.cu",
+            "replaces": "humannerf_tpu/ops/pallas_mlp.py:549",
+            "launches": 0, "max_abs_err": dx_abs,
+            "max_rel_l2_err": errs[worst], "worst": worst,
+            "tolerance": K2_F32_TOL if dt == torch.float32 else None,
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None, "n": n, "live_share": live_share,
+            "tflops": flops / (ms * 1e-3) / 1e12}
+        emit("kernels", **res, finite=finite, accuracy=accuracy,
+             rel_l2={k: round(v, 6) for k, v in sorted(errs.items())})
+        if not finite:
+            fail(f"K2[{name}] produced non-finite gradients")
+        if on_path:
+            results[f"k2:{name}"] = res
+
+    # ---- K3 and K4, in both compute types
+    G = net.cfg.warp.grid_size
+    K = shapes["vols"].shape[0]
+    boxes = (shapes["cnl_min"], shapes["cnl_scale"], shapes["obs_min"],
+             shapes["obs_max"])
+    # cotangent of the resampled weights as the step produces it: non-zero
+    # for every bone at the voxels the samples touch
+    touched = (shapes["U"][..., 12].float().reshape(-1) > 0)
+    g3 = (torch.randn((G ** 3, K), generator=gen)).to(dev) \
+        * touched[:, None].float()
+    Nk = shapes["pts"].shape[0]
+    fg_mask = None
+    for dt_name, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        tol = K34_TOL[dt]
+
+        def k3(fn):
+            leaves = [t.detach().clone().requires_grad_(True)
+                      for t in (shapes["vols"], shapes["Rs"], shapes["Ts"])]
+            return fn(*leaves, *boxes, G, dt), g3, leaves
+
+        def k3_grads(fn):
+            out, cot, leaves = k3(fn)
+            out.backward(cot)
+            return dict(zip(("d_vols", "dA", "dT"),
+                            (t.grad for t in leaves)))
+        before = fused_warp.resample_launches
+        gk = k3_grads(fused_warp.resample_all_bones)
+        torch.cuda.synchronize()
+        if fused_warp.resample_launches != before + 1:
+            fail(f"K3[{dt_name}]: the kernel was not launched")
+        gp = k3_grads(fused_warp.resample_all_bones_plain)
+        errs = {k: rel_l2(gk[k], gp[k]) for k in gp}
+        finite = all(bool(torch.isfinite(v).all()) for v in gk.values())
+        worst = max(errs, key=errs.get)
+        ms = time_ms(lambda: fused_warp.resample_backward(
+            shapes["vols"], shapes["Rs"], shapes["Ts"], *boxes, G, dt, g3),
+            warm=2, iters=10)
+        plain_ms = backward_ms(
+            lambda: [k3(fused_warp.resample_all_bones_plain)[:2]], 1, 3)
+        live_pairs = int((g3 != 0).sum())
+        nbytes = g3.numel() * 4 + 2 * shapes["vols"].numel() * 4 + K * 96
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        t_ops = live_pairs * 120 / PEAK_F32_FLOPS * 1e3
+        results[f"k3:{dt_name}"] = {
+            "name": f"resample_backward[{dt_name}]", "route": "cuda",
+            "source": "humannerf_tpu_torch/csrc/resample_bwd.cu",
+            "replaces": "humannerf_tpu/ops/pallas_resample.py:591",
+            "launches": 0,
+            "max_abs_err": float((gk["d_vols"] - gp["d_vols"]).abs().max()),
+            "max_rel_l2_err": errs[worst], "worst": worst,
+            "tolerance": tol, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None, "grid": G, "bones": K,
+            "live_pair_share": live_pairs / g3.numel()}
+        emit("kernels", **results[f"k3:{dt_name}"], finite=finite,
+             rel_l2=errs)
+        if not finite or not errs[worst] <= tol:
+            bad.append(f"K3[{dt_name}]: gradient {worst} is {errs[worst]} "
+                       f"from the plain version's, limit {tol}")
+
+        # K4
+        U = shapes["U"].to(dt)
+        with torch.no_grad():
+            _, fg0 = fused_warp.sample_packed_volume(
+                fused_warp.build_packed_volume(U), shapes["pts"],
+                shapes["obs_min"], shapes["obs_max"], shapes["live_band"])
+            fg_mask = (fg0 > 0).float()
+        gx = torch.randn((Nk, 3), generator=gen).to(dev) * fg_mask
+        gf = torch.randn((Nk, 1), generator=gen).to(dev) * fg_mask
+
+        def k4(fn, with_pts):
+            Ul = U.detach().clone().requires_grad_(True)
+            pl_ = shapes["pts"].clone().requires_grad_(with_pts)
+            if fn == "kernel":
+                x_, f_ = fused_warp.sample_packed_grad(
+                    Ul, pl_, shapes["obs_min"], shapes["obs_max"],
+                    shapes["live_band"])
+            else:
+                x_, f_ = fused_warp.sample_packed_volume(
+                    fused_warp.build_packed_volume(Ul), pl_,
+                    shapes["obs_min"], shapes["obs_max"],
+                    shapes["live_band"])
+            return torch.cat([x_, f_], dim=1), torch.cat([gx, gf], dim=1), \
+                Ul, pl_
+
+        def k4_grads(fn):
+            out, cot, Ul, pl_ = k4(fn, True)
+            out.backward(cot)
+            return {"dU": Ul.grad, "d_pts": pl_.grad}
+        before = fused_warp.scatter_launches
+        gk = k4_grads("kernel")
+        torch.cuda.synchronize()
+        if fused_warp.scatter_launches != before + 1:
+            fail(f"K4[{dt_name}]: the kernel was not launched")
+        if gk["dU"].dtype != dt:
+            fail(f"K4[{dt_name}]: dU is {gk['dU'].dtype}, expected {dt}")
+        gp = k4_grads("plain")
+        errs = {k: rel_l2(gk[k], gp[k]) for k in gp}
+        finite = all(bool(torch.isfinite(v).all()) for v in gk.values())
+        worst = max(errs, key=errs.get)
+        with torch.no_grad():
+            acc, (flat, w3, valid, _) = fused_warp.packed_acc(
+                fused_warp.build_packed_volume(U), shapes["pts"],
+                shapes["obs_min"], shapes["obs_max"], shapes["live_band"])
+            d_acc = torch.randn((Nk, 16), generator=gen).to(dev) \
+                * (valid[:, None] & (fg_mask > 0)).float()
+            flat32, valid8 = flat.to(torch.int32), valid.to(torch.uint8)
+            w3c = w3.contiguous()
+        ms = time_ms(lambda: fused_warp.scatter_grad_volume(
+            flat32, w3c, valid8, d_acc, G), warm=2, iters=10)
+        plain_ms = backward_ms(lambda: [k4("plain", False)[:2]], 1, 3)
+        # the one library call that computes the same dU: index_add_ of the
+        # eight weighted corner rows into the unpacked volume
+        with torch.no_grad():
+            k8 = torch.arange(8, device=dev)
+            off = ((k8 >> 2) * G + ((k8 >> 1) & 1)) * G + (k8 & 1)
+            idx = (flat[:, None] + off[None, :]).reshape(-1)
+            src = (fused_warp._corner_weights(w3)[:, :, None]
+                   * d_acc[:, None, :]).reshape(-1, 16)
+            dU_lib = torch.zeros((G ** 3, 16), device=dev)
+            library_ms = time_ms(
+                lambda: dU_lib.zero_().index_add_(0, idx, src), 1, 3)
+            dU_k = fused_warp.scatter_grad_volume(flat32, w3c, valid8,
+                                                  d_acc, G)
+            lib_err = rel_l2(dU_k.reshape(-1, 16),
+                             dU_lib.zero_().index_add_(0, idx, src))
+            del idx, src
+        nz = int((d_acc.abs().sum(dim=1) > 0).sum())
+        nbytes = Nk * 81 + G ** 3 * 64
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        t_ops = nz * 8 * 13 * 3 / PEAK_F32_FLOPS * 1e3
+        results[f"k4:{dt_name}"] = {
+            "name": f"scatter_volume_backward[{dt_name}]", "route": "cuda",
+            "source": "humannerf_tpu_torch/csrc/scatter.cu",
+            "replaces": "humannerf_tpu/ops/pallas_scatter.py:167",
+            "launches": 0,
+            "max_abs_err": float((gk["dU"].float()
+                                  - gp["dU"].float()).abs().max()),
+            "max_rel_l2_err": errs[worst], "worst": worst,
+            "tolerance": tol, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms, "n": Nk, "grid": G,
+            "nonzero_cotangent_share": nz / Nk, "vs_library_rel_l2": lib_err}
+        emit("kernels", **results[f"k4:{dt_name}"], finite=finite,
+             rel_l2=errs)
+        if not finite or not errs[worst] <= tol:
+            bad.append(f"K4[{dt_name}]: gradient {worst} is {errs[worst]} "
+                       f"from the plain version's, limit {tol}")
+        if not lib_err <= 1e-4:
+            bad.append(f"K4[{dt_name}]: dU is {lib_err} from index_add_'s")
+    if bad:
+        fail("; ".join(bad))
+    return results
+
+
 def phase_profile(cfg, params, item):
     """Where one warm frame's time goes: wall time of prepare_frame and of
     the blocks (host clock around a synchronise), then the same frame under
@@ -337,6 +813,391 @@ def phase_profile(cfg, params, item):
         fail("profile: the trace shows no device time")
 
 
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+# The schedules are cut to nothing, as depth may be: the non-rigid net and the
+# pose refiner take part from the first step with the full frequency band
+# (by default both wait for thousands of steps, during which the non-rigid
+# embedding is all zeros).
+TRAIN_OPTS = ["train.log_interval", "1", "progress.dump_interval", "1000000",
+              "train.save_checkpt_interval", "1000000", "save_all", "False",
+              "resume", "False", "non_rigid_motion_mlp.kick_in_iter", "0",
+              "non_rigid_motion_mlp.full_band_iter", "0",
+              "pose_decoder.kick_in_iter", "0"]
+# A parameter gradient of one whole step, kernels vs the plain versions,
+# relative L2 per tensor. float32: limit by module. The canonical and
+# non-rigid MLPs get their gradients from K2 directly (K2_F32_TOL's reasons).
+# The weight-volume decoder and the pose refiner get theirs from K2's dx
+# through K4 and K3, as sums over all samples and grid points in which most
+# of the terms cancel: where K3 and K4 alone agree to 1e-6, a dx that is 1e-3
+# off gives a pose-refiner gradient that is 1.4e-2 off. bfloat16: held to the
+# plain float32 step as K2 alone is (`accuracy_vs_f32`), with a wider ratio:
+# in a step the kernels' route differs from the plain one twice, in K1's
+# forward values and in K2's backward, and the cancelling sums amplify both
+# (the extra phase `step_accuracy` reads each apart). Every bf16 route's
+# pose-refiner gradient is 0.5-0.9 from the float32 one at mm-sized offsets.
+STEP_F32_TOL = {"cnl_mlp": 1e-2, "non_rigid_mlp": 2e-2,
+                "mweight_vol_decoder": 5e-2, "pose_decoder": 5e-2}
+STEP_ACCURACY_RATIO = 2.0
+PLAIN_ROUTES = ["pallas.mlp", "False", "pallas.scatter", "False",
+                "pallas.resample", "False"]
+
+
+class RepeatLoader:
+    """The loader interface Trainer.train needs, over a fixed list."""
+
+    def __init__(self, items):
+        self.items = items
+
+    def endless(self):
+        while True:
+            yield from self.items
+
+
+def reset_counts():
+    fused_mlp.launches = fused_mlp.bwd_launches = 0
+    fused_warp.resample_launches = fused_warp.scatter_launches = 0
+    composite.launches = 0
+
+
+def read_counts() -> dict:
+    return {"fused_mlp": fused_mlp.launches,
+            "fused_mlp_bwd": fused_mlp.bwd_launches,
+            "resample_bwd": fused_warp.resample_launches,
+            "scatter": fused_warp.scatter_launches,
+            "composite": composite.launches}
+
+
+def make_trainer(tmp, opts, params=None):
+    cfg = make_cfg(opts=TRAIN_OPTS + opts, base_dir=tmp)
+    trainer = Trainer(cfg, log=lambda *a: None)
+    if params is not None:
+        trainer.set_params(params)
+    return trainer
+
+
+def step_gradients(trainer, batch):
+    """Loss and every parameter gradient of one step, no update."""
+    trainer.optimizer.zero_grad(set_to_none=True)
+    loss, _ = trainer._loss_fn(trainer.params, batch, trainer.gen,
+                               trainer.iter)
+    loss.backward()
+    torch.cuda.synchronize()
+    return float(loss.detach()), {k: v.clone() for k, v in
+                         flat_grads(trainer.params).items()}
+
+
+def run_training(tmp, opts, params, item, steps):
+    """`steps` steps of Trainer.train on one repeated frame, launch counts
+    set to 0 just before and read just after.
+    -> (trainer, losses, ms per step, counts)."""
+    trainer = make_trainer(tmp, opts, params)
+    losses, ms = [], []
+    step = trainer.train_step
+
+    def timed(batch, noise=None):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        loss, terms = step(batch, noise)
+        losses.append(float(loss))             # waits for the device
+        ms.append((time.time() - t0) * 1e3)
+        return loss, terms
+    trainer.train_step = timed
+    reset_counts()
+    trainer.train(loader=RepeatLoader([item]), max_steps=steps)
+    counts = read_counts()
+    trainer.train_step = step
+    return trainer, losses, ms, counts
+
+
+def check_training(name, losses, counts, steps, falling):
+    if len(losses) != steps or not np.isfinite(losses).all():
+        fail(f"{name}: losses {losses}")
+    if falling and not np.mean(losses[-3:]) < np.mean(losses[:3]):
+        fail(f"{name}: the loss did not fall: {losses}")
+    for k in ("fused_mlp", "fused_mlp_bwd", "resample_bwd", "scatter"):
+        if counts[k] != steps:
+            fail(f"{name}: {counts[k]} launches of {k} in {steps} steps, "
+                 f"expected one a step")
+
+
+def compare_with_plain(tmp, name, opts, params, item, bf16: bool):
+    """The first step's gradients through the kernels and through the plain
+    versions (pallas.mlp / scatter / resample false), same parameters, same
+    batch, no depth jitter; in bf16 also through the plain versions in
+    float32. -> (readings, disagreements)."""
+    opts = opts + ["train.perturb", "0.0"]
+    tk = make_trainer(tmp, opts, params)
+    batch = to_device_batch(item, tk.device)
+    reset_counts()
+    loss_k, gk = step_gradients(tk, batch)
+    del tk
+    before = read_counts()
+    if any(before[k] != 1 for k in ("fused_mlp", "fused_mlp_bwd",
+                                    "resample_bwd", "scatter")):
+        fail(f"{name}: the step through the kernels launched {before}")
+    loss_p, gp = step_gradients(
+        make_trainer(tmp, opts + PLAIN_ROUTES, params), batch)
+    if read_counts() != before:
+        fail(f"{name}: the plain step launched a kernel")
+    if set(gk) != set(gp):
+        fail(f"{name}: gradient sets differ: {sorted(set(gk) ^ set(gp))}")
+    errs = {k: rel_l2(gk[k], gp[k]) for k in gp
+            if float(gp[k].abs().max()) > 0}
+    by_module = {}
+    for k, v in errs.items():
+        m = k.split(".")[0]
+        by_module[m] = max(by_module.get(m, 0.0), v)
+    res = {"loss": loss_k, "loss_plain": loss_p, "n_gradients": len(errs),
+           "max_rel_l2": max(errs.values()), "by_module": by_module}
+    bad = []
+    if not abs(loss_k - loss_p) <= 2e-2 * abs(loss_p):
+        bad.append(f"{name}: loss {loss_k} vs {loss_p} through the plain "
+                   f"versions")
+    if bf16:
+        _, g32 = step_gradients(make_trainer(
+            tmp, opts + PLAIN_ROUTES + ["dtype", "float32"], params), batch)
+        res["accuracy"] = accuracy_vs_f32(gk, gp, g32, STEP_ACCURACY_RATIO)
+        bad += [f"{name}: {b}" for b in res["accuracy"].pop("bad")]
+    else:
+        res["tolerance"] = STEP_F32_TOL
+        for k, v in errs.items():
+            if not v <= STEP_F32_TOL[k.split(".")[0]]:
+                bad.append(f"{name}: gradient {k} is {v} (relative L2) from "
+                           f"the plain versions', limit "
+                           f"{STEP_F32_TOL[k.split('.')[0]]}")
+    res["rel_l2"] = {k: round(v, 5) for k, v in sorted(errs.items())}
+    return res, bad
+
+
+def phase_train(tmp, params, item, kernels):
+    trainer, losses, ms, counts = run_training(tmp, [], params, item,
+                                               TRAIN_STEPS)
+    check_training("train", losses, counts, TRAIN_STEPS, falling=True)
+    warm = sorted(ms[3:])
+    # one step without the non-rigid net (tpose-style training)
+    _, losses_i, ms_i, counts_i = run_training(
+        tmp, ["ignore_non_rigid_motions", "True"], params, item, 2)
+    check_training("train[ignore_non_rigid]", losses_i, counts_i, 2, False)
+    vs, bad = compare_with_plain(tmp, "train", [], params, item, bf16=True)
+    emit("train", dtype="bfloat16", steps=TRAIN_STEPS, rays=TRAIN_RAYS,
+         samples=trainer.net.n_samples, losses=losses,
+         ms_per_step_median=warm[len(warm) // 2], ms_per_step=ms,
+         launches=counts, launches_per_step={k: v / TRAIN_STEPS
+                                             for k, v in counts.items()},
+         dead_tile_share=trainer.net.dead_tile_share(),
+         ignore_non_rigid={"losses": losses_i, "ms_per_step": ms_i,
+                           "launches": counts_i},
+         first_step_vs_plain=vs)
+    if bad:
+        fail("; ".join(bad))
+    for k, cnt in (("k2:", "fused_mlp_bwd"), ("k3:", "resample_bwd"),
+                   ("k4:", "scatter")):
+        if k + "bf16" in kernels:
+            kernels[k + "bf16"]["launches"] = counts[cnt]
+    if "k2:bf16,skip_nr" in kernels:
+        kernels["k2:bf16,skip_nr"]["launches"] = counts_i["fused_mlp_bwd"]
+
+
+def phase_train_f32(tmp, params, item, kernels):
+    opts = ["dtype", "float32"]
+    trainer, losses, ms, counts = run_training(tmp, opts, params, item, 3)
+    check_training("train_f32", losses, counts, 3, falling=False)
+    _, losses_i, ms_i, counts_i = run_training(
+        tmp, opts + ["ignore_non_rigid_motions", "True"], params, item, 1)
+    check_training("train_f32[ignore_non_rigid]", losses_i, counts_i, 1,
+                   False)
+    vs, bad = compare_with_plain(tmp, "train_f32", opts, params, item,
+                                 bf16=False)
+    emit("train_f32", dtype="float32", steps=3, losses=losses, ms_per_step=ms,
+         launches=counts, ignore_non_rigid={"losses": losses_i,
+                                            "ms_per_step": ms_i,
+                                            "launches": counts_i},
+         first_step_vs_plain=vs)
+    if bad:
+        fail("; ".join(bad))
+    for k, cnt in (("k2:", "fused_mlp_bwd"), ("k3:", "resample_bwd"),
+                   ("k4:", "scatter")):
+        if k + "f32" in kernels:
+            kernels[k + "f32"]["launches"] = counts[cnt]
+    if "k2:f32,skip_nr" in kernels:
+        kernels["k2:f32,skip_nr"]["launches"] = counts_i["fused_mlp_bwd"]
+
+
+def optimizer_state(trainer) -> dict:
+    """{parameter path: (exp_avg, exp_avg_sq, step, lr)} of a Trainer."""
+    lr = {id(p): g["lr"] for g in trainer.optimizer.param_groups
+          for p in g["params"]}
+    out = {}
+    for k, p in flat_leaves(trainer.params).items():
+        st = trainer.optimizer.state.get(p)
+        if st:
+            out[k] = (st["exp_avg"], st["exp_avg_sq"], float(st["step"]),
+                      lr[id(p)])
+    return out
+
+
+def phase_train_resume(tmp, params, item):
+    """Two steps, a checkpoint, a fresh Trainer that resumes from it: its
+    parameters, Adam moments, step counts and learning rates must equal the
+    first Trainer's bit for bit. Then the third step against three steps in
+    one run: equal up to what the atomics' summation order does."""
+    opts = ["train.perturb", "0.0"]
+    a, losses_a, _, _ = run_training(tmp + "/a", opts, params, item, 3)
+    b, losses_b, _, _ = run_training(tmp + "/b", opts, params, item, 2)
+    cfg_c = make_cfg(opts=TRAIN_OPTS + opts + ["resume", "True"],
+                     base_dir=tmp + "/b")
+    b.save("latest", b.iter - 1)     # the last finished step; resume adds 1
+    c = Trainer(cfg_c, log=lambda *a: None)
+    if c.iter != 3:
+        fail(f"train_resume: resumed at iter {c.iter}, expected 3")
+    pb, pc = flat_leaves(b.params), flat_leaves(c.params)
+    sb, sc = optimizer_state(b), optimizer_state(c)
+    if set(pb) != set(pc) or set(sb) != set(sc) or not sb:
+        fail(f"train_resume: {len(sc)} optimizer states restored of "
+             f"{len(sb)}, {len(pc)} parameters of {len(pb)}")
+    unequal = [k for k in pb if not torch.equal(pb[k], pc[k])]
+    unequal += [f"{k}.{field}" for k in sb for i, field in
+                enumerate(("exp_avg", "exp_avg_sq"))
+                if not torch.equal(sb[k][i], sc[k][i])]
+    unequal += [f"{k}.step/lr" for k in sb if sb[k][2:] != sc[k][2:]]
+    reset_counts()
+    batch = to_device_batch(item, c.device)
+    loss_c = float(c.train_step(batch)[0])
+    pa = flat_leaves(a.params)
+    lr = float(cfg_c.train.lr)
+    with torch.no_grad():
+        max_abs = max(float((pa[k] - pc[k]).abs().max()) for k in pa)
+        mean_abs = float(np.mean([float((pa[k] - pc[k]).abs().mean())
+                                  for k in pa]))
+    emit("train_resume", losses_uninterrupted=losses_a,
+         losses_before_resume=losses_b, loss_after_resume=loss_c,
+         optimizer_states_restored=len(sc), restored_unequal=unequal[:8],
+         steps_and_lrs=sorted({v[2:] for v in sc.values()}),
+         param_max_abs_diff=max_abs, param_mean_abs_diff=mean_abs,
+         tolerance_mean=0.1 * lr, tolerance_loss_rel=1e-2)
+    if unequal:
+        fail(f"train_resume: not restored bit for bit: {unequal[:8]}")
+    # Adam's update is lr * m / (sqrt(v) + eps): the sums of the kernels'
+    # atomics differ in their last bits from run to run, which can turn the
+    # sign of an update whose gradient is near zero, so single entries of
+    # two runs may be 2 lr apart after each step; on average they agree far
+    # closer, and the loss does.
+    if not abs(loss_c - losses_a[2]) <= 1e-2 * abs(losses_a[2]):
+        fail(f"train_resume: loss {loss_c} after the resume, "
+             f"{losses_a[2]} uninterrupted")
+    if not mean_abs <= 0.1 * lr:
+        fail(f"train_resume: parameters differ by {mean_abs} on average "
+             f"from the uninterrupted run's")
+
+
+QUERY_FUSED = fused_mlp.query_points_fused
+
+
+def k1_forward_plain_backward(plan, params, x, alpha, cc, live=None):
+    """K1's values with the plain version's gradient."""
+    plain = fused_mlp.query_points_plain(plan, params, x, alpha, cc, live)
+    with torch.no_grad():
+        fused = QUERY_FUSED(plan, params, x, alpha, cc, live)
+    return plain + (fused - plain).detach()
+
+
+def plain_forward_k2_backward(plan, params, x, alpha, cc, live=None):
+    """The plain version's values with K2's gradient."""
+    fused = QUERY_FUSED(plan, params, x, alpha, cc, live)
+    with torch.no_grad():
+        plain = fused_mlp.query_points_plain(plan, params, x, alpha, cc, live)
+    return fused + (plain - fused).detach()
+
+
+def phase_step_accuracy(tmp, params, item):
+    """Which kernel moves a bf16 step's gradients how far from the plain
+    float32 step's: all plain, all kernels, each kernel alone, and the fused
+    MLP's forward and backward kernels apart. Per route and module the
+    largest relative L2 distance and the smallest cosine."""
+    off = "False"
+    plain_warp = ["pallas.scatter", off, "pallas.resample", off]
+    routes = {
+        "plain_f32": (PLAIN_ROUTES + ["dtype", "float32"], None),
+        "plain_bf16": (PLAIN_ROUTES, None),
+        "kernels": ([], None),
+        "k1_k2_only": (plain_warp, None),
+        "k3_only": (["pallas.mlp", off, "pallas.scatter", off], None),
+        "k4_only": (["pallas.mlp", off, "pallas.resample", off], None),
+        "k1_only": (plain_warp, k1_forward_plain_backward),
+        "k2_only": (plain_warp, plain_forward_k2_backward)}
+    grads = {}
+    for name, (opts, query) in routes.items():
+        trainer = make_trainer(tmp, opts + ["train.perturb", "0.0"], params)
+        fused_mlp.query_points_fused = query or QUERY_FUSED
+        _, grads[name] = step_gradients(
+            trainer, to_device_batch(item, trainer.device))
+        fused_mlp.query_points_fused = QUERY_FUSED
+        del trainer
+    ref = grads.pop("plain_f32")
+    table = {}
+    for name, g in grads.items():
+        by_module = {}
+        for k, t in g.items():
+            if float(ref[k].abs().max()) == 0:
+                continue
+            m = by_module.setdefault(k.split(".")[0], [0.0, 1.0])
+            m[0] = max(m[0], rel_l2(t, ref[k]))
+            m[1] = min(m[1], cosine(t, ref[k]))
+        table[name] = by_module
+    emit("step_accuracy", reference="plain_f32",
+         columns=["max_rel_l2", "min_cosine"], routes=table)
+
+
+def phase_profile_train(tmp, params, item):
+    """Where one warm training step's time goes: the step under
+    torch.profiler, device time by kernel and the device's busy share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    trainer = make_trainer(tmp, [], params)
+    batch = to_device_batch(item, trainer.device)
+    for _ in range(3):
+        trainer.train_step(batch)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    trainer.train_step(batch)
+    torch.cuda.synchronize()
+    step_ms = (time.time() - t0) * 1e3
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        return (time.time() - t) * 1e3, out
+    trainer.optimizer.zero_grad(set_to_none=True)
+    fwd_ms, (loss, _) = wall(lambda: trainer._loss_fn(
+        trainer.params, batch, trainer.gen, trainer.iter))
+    bwd_ms, _ = wall(loss.backward)
+    opt_ms, _ = wall(trainer.optimizer.step)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer.train_step(batch)
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0
+            and "#" not in e.key]         # record_function markers
+    rows.sort(key=lambda r: -r[1])
+    busy_ms = sum(r[1] for r in rows)
+    emit("profile_train", step_ms=step_ms, forward_ms=fwd_ms,
+         backward_ms=bwd_ms, optimizer_ms=opt_ms, device_busy_ms=busy_ms,
+         device_busy_share=busy_ms / step_ms,
+         device_kernel_launches=sum(r[2] for r in rows),
+         top=[{"name": k[:60], "ms": round(ms, 3), "calls": c}
+              for k, ms, c in rows[:16]])
+    if busy_ms <= 0:
+        fail("profile_train: the trace shows no device time")
+
+
 def render_frames(cfg, params, items, device=None):
     """Render items through EvalRenderer with the launch counts set to 0
     just before and read just after. -> (outputs, seconds, counts, net)."""
@@ -375,7 +1236,7 @@ def main():
     args = ap.parse_args()
     phases = [p for p in args.phases.split(",") if p]
     for p in phases:
-        if p not in ALL_PHASES + ("profile",):
+        if p not in ALL_PHASES + EXTRA_PHASES:
             fail(f"unknown phase {p!r}")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a card")
@@ -390,10 +1251,17 @@ def main():
     cfg = make_cfg(opts=["eval.metrics", "['psnr', 'ssim']"])
     net0 = HumanNeRF(cfg)
     params = smoke_params(net0, SEED)
+    params_init = net0.init_params(SEED)   # offsets at their initial 1e-5
     items = [synthetic_item(cfg, n_rays, SEED + i) for i in range(N_FRAMES)]
 
-    kernels = phase_kernels(net0, params, CHUNK) \
-        if "kernels" in phases else {}
+    titem = train_item(cfg, SEED + 10)
+    kernels = {}
+    if "kernels" in phases:
+        kernels = phase_kernels(net0, params, CHUNK)
+        kernels.update(phase_kernels_backward(
+            net0, params, params_init,
+            training_shapes(net0, params, titem)))
+        torch.cuda.empty_cache()
 
     if "profile" in phases:
         phase_profile(cfg, params, items[0])
@@ -499,11 +1367,23 @@ def main():
         if "bf16,skip_nr" in kernels:
             kernels["bf16,skip_nr"]["launches"] = counts["fused_mlp"]
 
-    full = set(phases) == set(ALL_PHASES)
+    with tempfile.TemporaryDirectory() as tmp:
+        if "train" in phases:
+            phase_train(tmp + "/train", params, titem, kernels)
+        if "train_f32" in phases:
+            phase_train_f32(tmp + "/train_f32", params, titem, kernels)
+        if "train_resume" in phases:
+            phase_train_resume(tmp + "/resume", params, titem)
+        if "profile_train" in phases:
+            phase_profile_train(tmp + "/profile", params, titem)
+        if "step_accuracy" in phases:
+            phase_step_accuracy(tmp + "/accuracy", params, titem)
+
+    full = set(phases) >= set(ALL_PHASES)
     if full:
         for k in kernels.values():
             if k["launches"] <= 0:
-                fail(f"{k['name']} was never launched on the serving path")
+                fail(f"{k['name']} was never launched on the main paths")
     emit("total", seconds=round(time.time() - t_start, 1))
     if smi_line is not None:
         print(smi_line, flush=True)

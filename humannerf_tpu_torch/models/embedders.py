@@ -8,8 +8,7 @@ device, so the kick-in gates cost no synchronisation.
 
 from __future__ import annotations
 
-import math
-
+import numpy as np
 import torch
 
 
@@ -40,10 +39,16 @@ def hann_alpha(iter_val: float, multires: int, kick_in_iter: int,
 
 
 def hann_window_weights(alpha: float, multires: int) -> list:
-    """w_j = (1 - cos(pi * clip(alpha - j, 0, 1))) / 2 for j = 0..m-1,
-    as Python floats (rounded to float32 where they meet a tensor)."""
-    return [(1.0 - math.cos(math.pi * min(max(alpha - j, 0.0), 1.0))) / 2.0
-            for j in range(multires)]
+    """w_j = (1 - cos(pi * clip(alpha - j, 0, 1))) / 2 for j = 0..m-1.
+
+    Computed in float32 on the host (numpy), as the JAX package computes it
+    in float32 on the device: in training the window scales an embedding
+    Jacobian, so it should be the same float32 numbers. Returned as Python
+    floats that are exactly float32 values."""
+    j = np.arange(multires, dtype=np.float32)
+    t = np.clip(np.float32(alpha) - j, np.float32(0.0), np.float32(1.0))
+    w = (np.float32(1.0) - np.cos(np.float32(np.pi) * t)) / np.float32(2.0)
+    return [float(v) for v in w.astype(np.float32)]
 
 
 def hannw_fourier_embed(x: torch.Tensor, multires: int,

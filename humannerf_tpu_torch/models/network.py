@@ -1,4 +1,4 @@
-"""HumanNeRF network, serving path (mirrors humannerf_tpu/models/network.py).
+"""HumanNeRF network (mirrors humannerf_tpu/models/network.py).
 
   * `prepare_frame` runs the per-frame work once: pose refinement, motion
     basis, weight-volume decode, condition code, the fused observation-space
@@ -9,8 +9,15 @@
     `pallas.composite true`).
   * `render_rays` = prepare_frame + render_block over chunks.
 
-Only the default model family and only inference are ported; everything
-else raises NotImplementedError naming its ROADMAP.md queue item.
+All three run under autograd. With `train=True` the frame volume is
+differentiated by the resample kernel (`pallas.resample`), the sample
+gather by the scatter kernel (`pallas.scatter`) and the MLP query by the
+fused backward kernel (`pallas.mlp`); each switch set to false takes
+autograd through the plain version instead. Rendering without gradients is
+the caller's business (`EvalRenderer` wraps its calls in `torch.no_grad`).
+
+Only the default model family is ported; everything else raises
+NotImplementedError naming its ROADMAP.md queue item.
 
 Iteration-scheduled behaviour (hann-window alpha, kick-in gates) is decided
 on the host from a Python float, so no gate costs a device synchronisation.
@@ -30,13 +37,14 @@ from humannerf_tpu_torch.ops import fused_mlp
 from humannerf_tpu_torch.ops import liveness as lv
 from humannerf_tpu_torch.ops.fused_warp import (build_fused_volume,
                                                 build_packed_volume,
+                                                sample_packed_grad,
                                                 sample_packed_volume)
-from humannerf_tpu_torch.ops.raymarch import raw2outputs, sample_along_rays
+from humannerf_tpu_torch.ops.raymarch import (raw2outputs, sample_along_rays,
+                                              stratified_sampling)
 from humannerf_tpu_torch.utils.transforms import posevec_representation
 
 # ROADMAP.md queue A items that unsupported configurations are filed under
 _TODO = {
-    "train": "A1 (training: loss, optimizer, Trainer, backward kernels)",
     "analytic": "A2 (pallas.analytic_bands render route, kernel K5)",
     "warp": "A3 (warp.mode exact / unpacked fused volume, ops/trilinear)",
     "family": "A4 (non-default model family: multihead, view-dir, "
@@ -51,6 +59,21 @@ _TODO = {
 def _unsupported(key: str, what: str):
     raise NotImplementedError(
         f"{what} is not ported yet: ROADMAP.md item {_TODO[key]}")
+
+
+class _PermuteRows(torch.autograd.Function):
+    """x[perm] along dim 0 for a bijection `perm` with inverse `inv`: the
+    backward is the gather g[inv], not the scatter-add autograd would use."""
+
+    @staticmethod
+    def forward(ctx, x, perm, inv):
+        ctx.save_for_backward(inv)
+        return x[perm]
+
+    @staticmethod
+    def backward(ctx, g):
+        inv, = ctx.saved_tensors
+        return g[inv], None, None
 
 
 def check_supported(cfg):
@@ -135,13 +158,12 @@ class HumanNeRF:
 
     # -- per-frame preparation ----------------------------------------------
 
-    @torch.no_grad()
     def prepare_frame(self, params: dict, frame: dict, iter_val: float,
                       train: bool = False) -> dict:
         """Pose refinement + motion basis + weight volume + condition code
-        + packed warp volume + band boxes. Runs once per frame."""
-        if train:
-            _unsupported("train", "train=True")
+        + packed warp volume + band boxes. Runs once per frame. train=True
+        keeps the fused volume unpacked (`scatter_U`) when `pallas.scatter`
+        routes the sample gather through the scatter kernel."""
         cfg = self.cfg
         iter_val = float(iter_val)
         dst_Rs, dst_Ts = frame["dst_Rs"], frame["dst_Ts"]
@@ -178,7 +200,8 @@ class HumanNeRF:
         U = build_fused_volume(
             mweights[:-1], scale_Rs, Ts, frame["cnl_bbox_min_xyz"],
             frame["cnl_bbox_scale_xyz"], obs_min, obs_max,
-            cfg.warp.grid_size, dtype=self.compute_dtype)
+            cfg.warp.grid_size, dtype=self.compute_dtype,
+            pallas_resample=bool(cfg.get_path("pallas.resample", True)))
         ctx = {
             "motion_scale_Rs": scale_Rs,
             "motion_Ts": Ts,
@@ -189,18 +212,26 @@ class HumanNeRF:
             "cnl_bbox_min_xyz": frame["cnl_bbox_min_xyz"],
             "cnl_bbox_scale_xyz": frame["cnl_bbox_scale_xyz"],
             "bgcolor": frame["bgcolor"],
-            # packed volume stored in the compute dtype: bf16 rows halve the
-            # per-sample gather; the trilerp accumulates in float32
-            "packed_volume": build_packed_volume(U.to(self.compute_dtype)),
             "obs_min": obs_min,
             "obs_max": obs_max,
         }
+        # volume rows stored in the compute dtype: bf16 rows halve the
+        # per-sample gather; the trilerp accumulates in float32
+        if train and cfg.get_path("pallas.scatter", True):
+            # packed inside sample_packed_grad, whose backward is the
+            # scatter kernel
+            ctx["scatter_U"] = U.to(self.compute_dtype)
+        else:
+            ctx["packed_volume"] = build_packed_volume(
+                U.to(self.compute_dtype))
         if cfg.get_path("pallas.band_gather", True):
             # analytic per-ray live bands (ops/liveness.py): band-dead
-            # samples skip their gather row; exact, every packed channel
-            # reads 0 there
-            ctx["band_sup_lo"], ctx["band_sup_hi"] = \
-                lv.bone_support_boxes(mweights[:-1])
+            # samples skip their gather row and, in training, their scatter;
+            # exact, every packed channel reads 0 there. Liveness is a gate,
+            # not a function to differentiate.
+            with torch.no_grad():
+                ctx["band_sup_lo"], ctx["band_sup_hi"] = \
+                    lv.bone_support_boxes(mweights[:-1])
             ctx["band_dims"] = tuple(mweights.shape[1:])
             ctx["band_obs_step"] = (obs_max - obs_min) \
                 / (cfg.warp.grid_size - 1)
@@ -208,7 +239,7 @@ class HumanNeRF:
 
     # -- ray rendering --------------------------------------------------------
 
-    def _query(self, plan, params, ctx, x_skel, fg, R, S):
+    def _query(self, plan, params, ctx, x_skel, fg, R, S, train=False):
         """Canonical-space samples (R*S, 3) ray-major -> raw (R*S, 4).
 
         With pallas.skip_empty the samples go to the kernel z-major (all
@@ -218,7 +249,8 @@ class HumanNeRF:
         almost never die wholesale while sorted z-major tiles outside the
         shared band do. Tile liveness is fg > skip_eps. The reorder is a
         bijection and a dead tile yields raw = 0 where fg = 0, so the
-        composited result does not depend on it.
+        composited result does not depend on it, and neither do the
+        gradients: a dead tile's cotangent is exactly zero.
         """
         cfg = self.cfg
         sub = {k: params[k] for k in ("non_rigid_mlp", "cnl_mlp")
@@ -226,9 +258,11 @@ class HumanNeRF:
         cc = None if cfg.ignore_non_rigid_motions else ctx["condition_code"]
         if not cfg.get_path("pallas.mlp", True):
             query = fused_mlp.query_points_plain
-        elif x_skel.device.type == "cuda":
+        elif x_skel.device.type == "cuda" and not train:
             # the kernel's operands (cast, padded, condition code folded)
-            # are the same for every block of a frame: prepare them once
+            # are the same for every block of a frame: prepare them once.
+            # In training they stay in the autograd graph and are rebuilt
+            # by every call instead.
             if "mlp_kernel_weights" not in ctx:
                 ctx["mlp_kernel_weights"] = fused_mlp.make_kernel_weights(
                     plan, sub.get("non_rigid_mlp"), sub["cnl_mlp"], cc)
@@ -245,12 +279,12 @@ class HumanNeRF:
             return query(plan, sub, x_skel.contiguous(), ctx["hann_alpha"],
                          cc, None)
         x3 = x_skel.reshape(R, S, 3)
-        fg_rs = fg.reshape(R, S)
+        fg_rs = fg.detach().reshape(R, S)     # liveness only: no gradient
         order = inv = None
         if cfg.get_path("pallas.skip_zmajor", True):
             if cfg.get_path("pallas.skip_sort_rays", True):
                 order, inv = fused_mlp.ray_sort_order(fg_rs, skip_eps)
-                x3 = x3[order]
+                x3 = _PermuteRows.apply(x3, order, inv)
                 fg_rs = fg_rs[order]
             xq = x3.transpose(0, 1).reshape(N, 3)          # z-major copy
             fgq = fg_rs.t().reshape(N)
@@ -266,20 +300,25 @@ class HumanNeRF:
         if cfg.get_path("pallas.skip_zmajor", True):
             raw = raw.reshape(S, R, 4).transpose(0, 1)     # (R, S, 4)
             if inv is not None:
-                raw = raw[inv]
+                raw = _PermuteRows.apply(raw, inv, order)
         return raw.reshape(N, 4)
 
-    @torch.no_grad()
-    def render_block(self, params: dict, ctx: dict, block: dict, *,
+    def render_block(self, params: dict, ctx: dict, block: dict,
+                     generator: torch.Generator | None = None, *,
                      perturb: bool = False, full_outputs: bool = False,
-                     head_mode: str = "single", train: bool = False) -> dict:
+                     remat: bool = False, head_mode: str = "single",
+                     train: bool = False, noise=None) -> dict:
         """Render one block of rays -> dict(rgb (R, 3), alpha (R,),
         depth (R,)). The per-sample outputs of the JAX package's
         raw2outputs route (weights, rgb on rays) are not returned: at
         serving sizes they are hundreds of MB a frame and nothing reads
-        them without full_outputs."""
-        if train or perturb:
-            _unsupported("train", "train=True / perturb=True")
+        them without full_outputs.
+
+        perturb jitters the depth samples within their bins with uniform
+        noise from `generator`, or with `noise` (R, S) in [0, 1) when given.
+        remat is accepted for the JAX signature and has no effect: the
+        backward kernel recomputes the MLP's forward by itself.
+        """
         if full_outputs:
             _unsupported("outputs", "full_outputs=True")
         if head_mode != "single":
@@ -291,49 +330,67 @@ class HumanNeRF:
         S = self.n_samples
 
         z_vals = sample_along_rays(near, far, S)              # (R, S)
+        if perturb:
+            z_vals = stratified_sampling(z_vals, generator, noise=noise)
         pts = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
         pts_flat = pts.reshape(-1, 3)
 
         live_band = None
         if "band_sup_lo" in ctx:
-            t0, t1 = lv.ray_band_intervals(
-                rays_o, rays_d, near, far, ctx["motion_scale_Rs"],
-                ctx["motion_Ts"], ctx["cnl_bbox_min_xyz"],
-                ctx["cnl_bbox_scale_xyz"], ctx["band_dims"],
-                ctx["band_sup_lo"], ctx["band_sup_hi"],
-                obs_step=ctx["band_obs_step"])
-            live_band = lv.sample_live_mask(z_vals, t0, t1).reshape(-1)
-        x_skel, fg = sample_packed_volume(
-            ctx["packed_volume"], pts_flat, ctx["obs_min"], ctx["obs_max"],
-            live=live_band)
+            with torch.no_grad():
+                t0, t1 = lv.ray_band_intervals(
+                    rays_o, rays_d, near, far, ctx["motion_scale_Rs"],
+                    ctx["motion_Ts"], ctx["cnl_bbox_min_xyz"],
+                    ctx["cnl_bbox_scale_xyz"], ctx["band_dims"],
+                    ctx["band_sup_lo"], ctx["band_sup_hi"],
+                    obs_step=ctx["band_obs_step"])
+                live_band = lv.sample_live_mask(z_vals, t0, t1).reshape(-1)
+        if "scatter_U" in ctx:
+            x_skel, fg = sample_packed_grad(
+                ctx["scatter_U"], pts_flat, ctx["obs_min"], ctx["obs_max"],
+                live=live_band)
+        else:
+            x_skel, fg = sample_packed_volume(
+                ctx["packed_volume"], pts_flat, ctx["obs_min"],
+                ctx["obs_max"], live=live_band)
 
         plan = self.mlp_plans[1 if cfg.ignore_non_rigid_motions else 0]
-        raw = self._query(plan, params, ctx, x_skel, fg, R, S)
+        raw = self._query(plan, params, ctx, x_skel, fg, R, S, train=train)
 
         raw = raw.reshape(R, S, 4)
         fg = fg.reshape(R, S, 1)
         if cfg.get_path("pallas.composite", False):
+            if train:
+                raise ValueError(
+                    "pallas.composite true has no gradient (the compositing "
+                    "kernel is forward only): train with pallas.composite "
+                    "false")
             return composite_op.composite(
                 raw.contiguous(), fg.contiguous(), z_vals.contiguous(),
                 rays_d.contiguous(), ctx["bgcolor"].contiguous())
         out = raw2outputs(raw, fg, z_vals, rays_d, ctx["bgcolor"])
         return {k: out[k] for k in ("rgb", "alpha", "depth")}
 
-    @torch.no_grad()
     def render_rays(self, params: dict, frame: dict, rays: dict, iter_val,
-                    *, perturb: bool = False, chunk: int | None = None,
-                    full_outputs: bool = False, head_mode: str = "single",
-                    train: bool = False) -> dict:
+                    generator: torch.Generator | None = None, *,
+                    perturb: bool = False, chunk: int | None = None,
+                    full_outputs: bool = False, remat: bool = False,
+                    head_mode: str = "single", train: bool = False,
+                    noise=None) -> dict:
         """Full forward: prepare the frame once, render the rays in blocks
-        of `chunk` (the last block may be shorter)."""
+        of `chunk` (the last block may be shorter). The blocks draw their
+        perturbation noise from `generator` one after the other."""
         ctx = self.prepare_frame(params, frame, iter_val, train=train)
         n_rays = rays["rays_o"].shape[0]
-        kw = dict(perturb=perturb, full_outputs=full_outputs,
+        kw = dict(perturb=perturb, full_outputs=full_outputs, remat=remat,
                   head_mode=head_mode, train=train)
         if chunk is None or chunk >= n_rays:
-            return self.render_block(params, ctx, rays, **kw)
+            return self.render_block(params, ctx, rays, generator=generator,
+                                     noise=noise, **kw)
         outs = []
         for s in range(0, n_rays, chunk):
             blk = {k: v[s:s + chunk] for k, v in rays.items()}
-            outs.append(self.render_block(params, ctx, blk, **kw))
+            outs.append(self.render_block(
+                params, ctx, blk, generator=generator,
+                noise=None if noise is None else noise[s:s + chunk], **kw))
         return {k: torch.cat([o[k] for o in outs], dim=0) for k in outs[0]}

@@ -48,7 +48,8 @@ def _find_nvcc() -> str:
 
 def _digest(srcs) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    # headers shared between sources count too
+    for s in list(srcs) + sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh"))):
         h.update(os.path.basename(s).encode())
         with open(s, "rb") as f:
             h.update(f.read())
@@ -111,6 +112,17 @@ def load_library():
                                       vp, vp, vp]
     lib.composite_forward.restype = ci
     lib.composite_forward.argtypes = [vp, vp, vp, vp, vp, vp, vp, ll, ci, vp]
+    lib.fused_mlp_bwd_grid.restype = ci
+    lib.fused_mlp_bwd_grid.argtypes = [ci]
+    lib.fused_mlp_bwd_block_rows.restype = ci
+    lib.fused_mlp_backward.restype = ci
+    lib.fused_mlp_backward.argtypes = [vp, vp, vp, ll, vp, vp, ci, ci, vp, vp,
+                                       vp, vp, vp, ll, ci, vp]
+    lib.scatter_volume_backward.restype = ci
+    lib.scatter_volume_backward.argtypes = [vp, vp, vp, vp, vp, ll, ci, vp]
+    lib.resample_backward.restype = ci
+    lib.resample_backward.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci,
+                                      ci, ci, ci, vp]
     _lib = lib
     return lib
 

@@ -1,5 +1,5 @@
 """Fused non-rigid + canonical MLP point query
-(counterpart of humannerf_tpu/ops/pallas_mlp.py, forward only).
+(counterpart of humannerf_tpu/ops/pallas_mlp.py).
 
 The per-sample chain
 
@@ -14,6 +14,17 @@ the whole chain in shared memory, 64 samples (half a liveness tile of
 `query_points_plain` is its plain PyTorch version, built from models/mlps.py
 and models/embedders.py. A CPU tensor takes the plain version; a CUDA
 tensor launches the kernel or raises.
+
+Under autograd the CUDA route is a `torch.autograd.Function`: forward is the
+kernel above, backward is `csrc/fused_mlp_bwd.cu` (`fused_mlp_backward`),
+which replaces the Pallas TPU kernel `_bwd_call` / `_bwd_kernel`: it
+recomputes the forward per block of samples and returns dx and every dW and
+db. The Function's inputs are the kernel's logical operands (slices of the
+parameters, the first non-rigid bias with the condition code folded in), so
+the gradients of the parameters' other parts, and of the condition code,
+follow by autograd outside the kernel. The plain version of the backward is
+autograd through `query_points_plain`. dW is summed with atomics: its last
+bits vary from run to run.
 
 On the card the kernel is bound by tensor-core operations: about 1.17 MFLOP
 against 28 bytes a live sample at the default widths.
@@ -44,8 +55,10 @@ _MAX_DEPTH = 12     # csrc/fused_mlp.cu MAX_DEPTH
 _MAX_FREQ = 16      # csrc/fused_mlp.cu MAX_FREQ
 _MAX_EPAD = 64      # csrc/fused_mlp.cu MAX_EPAD
 
-# number of kernel launches made by `query_points_fused` (CUDA tensors only)
+# number of launches of the forward kernel and of the backward kernel
+# (CUDA tensors only)
 launches = 0
+bwd_launches = 0
 
 
 class Plan:
@@ -144,17 +157,64 @@ def _pad_rows(w, rows: int):
     return torch.cat([w, pad], dim=0)
 
 
-def make_kernel_weights(plan: Plan, nr_params, cnl_params, condition_code):
-    """Parameter dictionaries -> the kernel's operand lists.
+def kernel_operands(plan: Plan, nr_params, cnl_params, condition_code):
+    """Parameter dictionaries -> the kernel's logical operands, float32
+    views of the parameters in their own (in, out) layout and unpadded.
 
     Per net: w_h[i] the (width, width) rows that meet h, w_e[i] the
-    (epad, width) rows that meet the embedding (zero-padded to a multiple of
-    16 rows), or None where a layer has no such operand; b[i] float32;
-    w_out (width, n_out), b_out. Weight matrices are cast to the compute
-    dtype once here; biases stay float32; everything is contiguous. In
-    bfloat16 the hidden-layer matrices w_h / w_e are stored transposed,
-    (out, in): the kernel's tensor-core fragments then load pairs along the
-    input dimension as whole words.
+    (embed_dim, width) rows that meet the embedding, or None where a layer
+    has no such operand; b[i]; w_out (width, n_out), b_out. The condition
+    code is folded into the first non-rigid bias. Every entry is a
+    differentiable function of the parameters and the condition code.
+    """
+    nets = {}
+    if not plan.skip_nr:
+        E = plan.nr_embed_dim
+        layers = nr_params["block_mlps"]
+        w0e, b0 = fold_condition_code(nr_params, E, condition_code)
+        w_h, w_e, b = [None], [w0e], [b0]
+        for i in range(1, plan.nr_depth):
+            p = layers[i]
+            if i in plan.nr_skips:        # input concat [h, pos_embed]
+                w_h.append(p["w"][:plan.nr_width])
+                w_e.append(p["w"][plan.nr_width:])
+            else:
+                w_h.append(p["w"])
+                w_e.append(None)
+            b.append(p["b"])
+        nets["nr"] = dict(
+            depth=plan.nr_depth, width=plan.nr_width,
+            multires=plan.nr_multires, n_out=3, w_h=w_h, w_e=w_e, b=b,
+            w_out=nr_params["output"]["w"], b_out=nr_params["output"]["b"])
+    E = plan.cnl_embed_dim
+    layers = cnl_params["pts_linears"]
+    w_h, w_e, b = [None], [layers[0]["w"]], [layers[0]["b"]]
+    for li in range(1, plan.cnl_depth):
+        p = layers[li]
+        if li in plan.cnl_skips:          # input concat [pos_embed, h]
+            w_h.append(p["w"][E:])
+            w_e.append(p["w"][:E])
+        else:
+            w_h.append(p["w"])
+            w_e.append(None)
+        b.append(p["b"])
+    nets["cnl"] = dict(
+        depth=plan.cnl_depth, width=plan.cnl_width,
+        multires=plan.cnl_multires, n_out=4, w_h=w_h, w_e=w_e, b=b,
+        w_out=cnl_params["output"]["w"], b_out=cnl_params["output"]["b"])
+    return nets
+
+
+def pack_kernel_weights(plan: Plan, operands, backward: bool = False):
+    """Logical operands -> the tensors the kernels read.
+
+    Weight matrices are cast to the compute dtype once here; biases stay
+    float32; everything is contiguous; w_e is zero-padded to a multiple of
+    16 rows (`epad`). In bfloat16 the hidden-layer matrices w_h / w_e are
+    stored transposed, (out, in): the kernel's tensor-core fragments then
+    load pairs along the input dimension as whole words. backward: also
+    w_h_t / w_e_t, the (out, in) copies the backward kernel multiplies dy
+    with (in bfloat16 the same tensors as w_h / w_e).
     """
     dt = plan.compute_dtype
     transposed = dt == torch.bfloat16
@@ -166,55 +226,43 @@ def make_kernel_weights(plan: Plan, nr_params, cnl_params, condition_code):
         return t if t.data_ptr() % 32 == 0 else t.clone()
 
     def out_cast(w):
-        return aligned(w.to(dt))
+        return aligned(w.detach().to(dt))
 
-    def cast(w):
-        return out_cast(w.t() if transposed else w)
+    def cast(w, t):
+        return None if w is None else out_cast(w.t() if t else w)
 
     def f32(b):
-        return aligned(b.to(torch.float32))
+        return aligned(b.detach().to(torch.float32))
 
     nets = {}
-    if not plan.skip_nr:
-        E = plan.nr_embed_dim
-        epad = -(-E // 16) * 16
-        layers = nr_params["block_mlps"]
-        w0e, b0 = fold_condition_code(nr_params, E, condition_code)
-        w_h, w_e, b = [None], [cast(_pad_rows(w0e, epad))], [f32(b0)]
-        for i in range(1, plan.nr_depth):
-            p = layers[i]
-            if i in plan.nr_skips:        # input concat [h, pos_embed]
-                w_h.append(cast(p["w"][:plan.nr_width]))
-                w_e.append(cast(_pad_rows(p["w"][plan.nr_width:], epad)))
+    for name, op in operands.items():
+        edim = op["w_e"][0].shape[0]
+        epad = -(-edim // 16) * 16
+        w_e = [None if w is None else _pad_rows(w.detach(), epad)
+               for w in op["w_e"]]
+        net = dict(
+            depth=op["depth"], width=op["width"], multires=op["multires"],
+            epad=epad, edim=edim, n_out=op["n_out"],
+            w_h=[cast(w, transposed) for w in op["w_h"]],
+            w_e=[cast(w, transposed) for w in w_e],
+            b=[f32(b) for b in op["b"]],
+            w_out=out_cast(op["w_out"]), b_out=f32(op["b_out"]))
+        if backward:
+            if transposed:
+                net["w_h_t"], net["w_e_t"] = net["w_h"], net["w_e"]
             else:
-                w_h.append(cast(p["w"]))
-                w_e.append(None)
-            b.append(f32(p["b"]))
-        nets["nr"] = dict(
-            depth=plan.nr_depth, width=plan.nr_width,
-            multires=plan.nr_multires, epad=epad, n_out=3, w_h=w_h, w_e=w_e,
-            b=b, w_out=out_cast(nr_params["output"]["w"]),
-            b_out=f32(nr_params["output"]["b"]))
-    E = plan.cnl_embed_dim
-    epad = -(-E // 16) * 16
-    layers = cnl_params["pts_linears"]
-    w_h, w_e = [None], [cast(_pad_rows(layers[0]["w"], epad))]
-    b = [f32(layers[0]["b"])]
-    for li in range(1, plan.cnl_depth):
-        p = layers[li]
-        if li in plan.cnl_skips:          # input concat [pos_embed, h]
-            w_h.append(cast(p["w"][E:]))
-            w_e.append(cast(_pad_rows(p["w"][:E], epad)))
-        else:
-            w_h.append(cast(p["w"]))
-            w_e.append(None)
-        b.append(f32(p["b"]))
-    nets["cnl"] = dict(
-        depth=plan.cnl_depth, width=plan.cnl_width,
-        multires=plan.cnl_multires, epad=epad, n_out=4, w_h=w_h, w_e=w_e,
-        b=b, w_out=out_cast(cnl_params["output"]["w"]),
-        b_out=f32(cnl_params["output"]["b"]))
+                net["w_h_t"] = [cast(w, True) for w in op["w_h"]]
+                net["w_e_t"] = [cast(w, True) for w in w_e]
+        nets[name] = net
     return nets
+
+
+def make_kernel_weights(plan: Plan, nr_params, cnl_params, condition_code):
+    """Parameter dictionaries -> the forward kernel's operand lists (see
+    `kernel_operands` and `pack_kernel_weights`). The result carries no
+    autograd graph: prepare it once per frame when rendering."""
+    return pack_kernel_weights(
+        plan, kernel_operands(plan, nr_params, cnl_params, condition_code))
 
 
 def ray_sort_order(fg_rs: torch.Tensor, skip_eps: float = 0.0):
@@ -286,9 +334,11 @@ def query_points_plain(plan: Plan, params, x_skel, hann_alpha: float,
     return raw
 
 
-def _ptr_table(net):
+def _ptr_table(net, grads=None):
     """ctypes tables for one net: desc ints and the device-pointer list
-    [w_h x MAX_DEPTH, w_e x MAX_DEPTH, b x MAX_DEPTH, w_out, b_out]."""
+    [w_h x MAX_DEPTH, w_e x MAX_DEPTH, b x MAX_DEPTH, w_out, b_out]; with
+    `grads` (the backward's gradient buffers) followed by [w_h_t, w_e_t,
+    dw_h, dw_e, db] x MAX_DEPTH, dw_out, db_out."""
     desc = (ctypes.c_int * 5)(net["depth"], net["width"], net["multires"],
                               net["epad"], net["n_out"])
     ptrs = [None] * (3 * _MAX_DEPTH + 2)
@@ -298,6 +348,16 @@ def _ptr_table(net):
             ptrs[k * _MAX_DEPTH + i] = None if t is None else t.data_ptr()
     ptrs[3 * _MAX_DEPTH] = net["w_out"].data_ptr()
     ptrs[3 * _MAX_DEPTH + 1] = net["b_out"].data_ptr()
+    if grads is not None:
+        more = [None] * (5 * _MAX_DEPTH + 2)
+        for i in range(net["depth"]):
+            for k, t in enumerate((net["w_h_t"][i], net["w_e_t"][i],
+                                   grads["w_h"][i], grads["w_e"][i],
+                                   grads["b"][i])):
+                more[k * _MAX_DEPTH + i] = None if t is None else t.data_ptr()
+        more[5 * _MAX_DEPTH] = grads["w_out"].data_ptr()
+        more[5 * _MAX_DEPTH + 1] = grads["b_out"].data_ptr()
+        ptrs += more
     return desc, (ctypes.c_void_p * len(ptrs))(*ptrs)
 
 
@@ -322,6 +382,208 @@ def _check_plan_for_kernel(plan: Plan):
                              f"{edim} columns exceeds {_MAX_EPAD}")
 
 
+def _check_call(plan: Plan, x_skel, live, nets):
+    """Checks shared by the forward and the backward launch; returns the
+    tile liveness (all ones when none was given)."""
+    dev = x_skel.device
+    if dev.type != "cuda":
+        raise ValueError(f"the fused MLP kernels need CUDA tensors, got {dev}")
+    if x_skel.dtype != torch.float32:
+        raise TypeError(f"x_skel must be float32, got {x_skel.dtype}")
+    if x_skel.dim() != 2 or x_skel.shape[1] != 3:
+        raise ValueError(f"x_skel must be (N, 3), got {tuple(x_skel.shape)}")
+    if not x_skel.is_contiguous():
+        raise ValueError("x_skel must be contiguous")
+    _check_plan_for_kernel(plan)
+    n_tiles = -(-x_skel.shape[0] // TILE)
+    if live is None:
+        live = torch.ones((n_tiles,), dtype=torch.int32, device=dev)
+    if (live.device != dev or live.dtype != torch.int32
+            or tuple(live.shape) != (n_tiles,) or not live.is_contiguous()):
+        raise ValueError(
+            f"live must be a contiguous int32 ({n_tiles},) tensor on {dev}")
+    for net in nets.values():
+        for t in (net["w_h"] + net["w_e"] + net["b"]
+                  + [net["w_out"], net["b_out"]]):
+            if t is not None and t.device != dev:
+                raise ValueError("parameters are on another device than "
+                                 "x_skel")
+    return live
+
+
+def _library():
+    from humannerf_tpu_torch.ops._build import load_library
+    lib = load_library()
+    if lib.fused_mlp_tile() != TILE or lib.fused_mlp_max_depth() != _MAX_DEPTH:
+        raise RuntimeError("csrc/fused_mlp.cu and ops/fused_mlp.py disagree "
+                           "on TILE / MAX_DEPTH")
+    return lib
+
+
+def _hann_table(plan: Plan, hann_alpha: float):
+    hann = [0.0] * _MAX_FREQ
+    if not plan.skip_nr:
+        hann[:plan.nr_multires] = hann_window_weights(float(hann_alpha),
+                                                      plan.nr_multires)
+    return (ctypes.c_float * _MAX_FREQ)(*hann)
+
+
+def launch_forward(plan: Plan, x_skel, hann_alpha: float, live, nets):
+    """The forward kernel on prepared operands: x_skel (N, 3) -> (N, 4)."""
+    global launches
+    live = _check_call(plan, x_skel, live, nets)
+    dev = x_skel.device
+    lib = _library()
+    cnl_desc, cnl_ptrs = _ptr_table(nets["cnl"])
+    nr_desc, nr_ptrs = (cnl_desc, cnl_ptrs) if plan.skip_nr \
+        else _ptr_table(nets["nr"])
+    n = x_skel.shape[0]
+    out = torch.empty((n, 4), dtype=torch.float32, device=dev)
+    if n == 0:
+        return out
+    with torch.cuda.device(dev):
+        err = lib.fused_mlp_forward(
+            x_skel.data_ptr(), out.data_ptr(), n, live.data_ptr(),
+            _hann_table(plan, hann_alpha),
+            1 if plan.compute_dtype == torch.bfloat16 else 0,
+            1 if plan.skip_nr else 0, nr_desc, nr_ptrs, cnl_desc, cnl_ptrs,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_mlp_forward failed to launch "
+                           f"(cudaError {err})")
+    launches += 1
+    return out
+
+
+def _grad_buffers(net, device):
+    """Zeroed float32 gradient buffers of one net, views of one allocation:
+    dw_h (width, width), dw_e (epad, width), db (width,) per layer, dw_out
+    (width, n_out), db_out (n_out,)."""
+    W, epad, n_out = net["width"], net["epad"], net["n_out"]
+    shapes = []
+    for i in range(net["depth"]):
+        shapes.append(("w_h", i, (W, W) if net["w_h"][i] is not None else None))
+        shapes.append(("w_e", i, (epad, W) if net["w_e"][i] is not None
+                       else None))
+        shapes.append(("b", i, (W,)))
+    shapes += [("w_out", None, (W, n_out)), ("b_out", None, (n_out,))]
+    total = sum(-(-int(torch.Size(sh).numel()) // 8) * 8
+                for _, _, sh in shapes if sh is not None)
+    flat = torch.zeros((total,), dtype=torch.float32, device=device)
+    grads = {"w_h": [], "w_e": [], "b": []}
+    off = 0
+    for key, i, sh in shapes:
+        t = None
+        if sh is not None:
+            numel = int(torch.Size(sh).numel())
+            t = flat[off:off + numel].view(sh)
+            off += -(-numel // 8) * 8          # keep every buffer 32-byte aligned
+        if i is None:
+            grads[key] = t
+        else:
+            grads[key].append(t)
+    return grads
+
+
+def launch_backward(plan: Plan, x_skel, g, hann_alpha: float, live, nets):
+    """The backward kernel: g (N, 4), the cotangent of raw -> (dx (N, 3),
+    {net: gradient buffers as `_grad_buffers` lays them out}). `nets` must
+    come from `pack_kernel_weights(..., backward=True)`."""
+    global bwd_launches
+    live = _check_call(plan, x_skel, live, nets)
+    dev = x_skel.device
+    n = x_skel.shape[0]
+    if (g.device != dev or g.dtype != torch.float32
+            or tuple(g.shape) != (n, 4) or not g.is_contiguous()):
+        raise ValueError(f"g must be a contiguous float32 ({n}, 4) tensor "
+                         f"on {dev}")
+    if "w_h_t" not in nets["cnl"]:
+        raise ValueError("operands were packed without backward=True")
+    lib = _library()
+    grads = {name: _grad_buffers(net, dev) for name, net in nets.items()}
+    cnl_desc, cnl_ptrs = _ptr_table(nets["cnl"], grads["cnl"])
+    nr_desc, nr_ptrs = (cnl_desc, cnl_ptrs) if plan.skip_nr \
+        else _ptr_table(nets["nr"], grads["nr"])
+    dx = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    if n == 0:
+        return dx, grads
+    is_bf16 = 1 if plan.compute_dtype == torch.bfloat16 else 0
+    with torch.cuda.device(dev):
+        grid = lib.fused_mlp_bwd_grid(is_bf16)
+        if grid <= 0:
+            raise RuntimeError("fused_mlp_bwd_grid failed")
+        grid = min(grid, -(-n // lib.fused_mlp_bwd_block_rows()))
+        per_block = sum(net["depth"] * net["width"] for net in nets.values()) \
+            * lib.fused_mlp_bwd_block_rows()
+        scratch = torch.empty((grid * per_block,), dtype=plan.compute_dtype,
+                              device=dev)
+        err = lib.fused_mlp_backward(
+            x_skel.data_ptr(), g.data_ptr(), dx.data_ptr(), n,
+            live.data_ptr(), _hann_table(plan, hann_alpha), is_bf16,
+            1 if plan.skip_nr else 0, nr_desc, nr_ptrs, cnl_desc, cnl_ptrs,
+            scratch.data_ptr(), per_block, grid,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_mlp_backward failed to launch "
+                           f"(cudaError {err})")
+    bwd_launches += 1
+    return dx, grads
+
+
+def _flatten_operands(operands):
+    """-> (slots, tensors): slots name each tensor as (net, key, layer)."""
+    slots, flat = [], []
+    for name, op in operands.items():
+        for i in range(op["depth"]):
+            for key in ("w_h", "w_e", "b"):
+                if op[key][i] is not None:
+                    slots.append((name, key, i))
+                    flat.append(op[key][i])
+        for key in ("w_out", "b_out"):
+            slots.append((name, key, None))
+            flat.append(op[key])
+    return tuple(slots), flat
+
+
+class _FusedQuery(torch.autograd.Function):
+    """raw = fused query of x_skel. Inputs after x_skel: the logical operands
+    flattened by `_flatten_operands`. Forward and backward each launch one
+    kernel; hann window and liveness get no gradient."""
+
+    @staticmethod
+    def forward(ctx, plan, hann_alpha, live, slots, meta, x_skel, *flat):
+        operands = {name: dict(m, w_h=[None] * m["depth"],
+                               w_e=[None] * m["depth"], b=[None] * m["depth"])
+                    for name, m in meta.items()}
+        for (name, key, i), t in zip(slots, flat):
+            if i is None:
+                operands[name][key] = t
+            else:
+                operands[name][key][i] = t
+        nets = pack_kernel_weights(plan, operands, backward=True)
+        out = launch_forward(plan, x_skel, hann_alpha, live, nets)
+        ctx.plan, ctx.hann_alpha, ctx.live = plan, hann_alpha, live
+        ctx.slots, ctx.nets = slots, nets
+        ctx.shapes = [tuple(t.shape) for t in flat]
+        ctx.dtypes = [t.dtype for t in flat]
+        ctx.save_for_backward(x_skel)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x_skel, = ctx.saved_tensors
+        dx, grads = launch_backward(ctx.plan, x_skel, g.contiguous(),
+                                    ctx.hann_alpha, ctx.live, ctx.nets)
+        dflat = []
+        for (name, key, i), shape, dt in zip(ctx.slots, ctx.shapes,
+                                             ctx.dtypes):
+            t = grads[name][key] if i is None else grads[name][key][i]
+            # rows of w_e past the embedding's width are the kernel's zero
+            # padding: their gradient is dropped
+            dflat.append(t[:shape[0]].to(dt))
+        return (None, None, None, None, None, dx, *dflat)
+
+
 def query_points_fused(plan: Plan, params, x_skel, hann_alpha: float,
                        condition_code, live=None,
                        kernel_weights=None) -> torch.Tensor:
@@ -333,71 +595,27 @@ def query_points_fused(plan: Plan, params, x_skel, hann_alpha: float,
     `tile_liveness`); tiles flagged 0 yield zeros and cost no other work.
     kernel_weights: optional result of `make_kernel_weights` for these
     params and this condition code, to prepare the operands once per frame
-    instead of once per call.
+    instead of once per call; such a call is forward only.
 
     CPU tensors go through `query_points_plain`; CUDA tensors launch the
-    kernel (building it at first use) or raise.
+    kernel (building it at first use) or raise. Without `kernel_weights`
+    the call is differentiable: its backward launches the backward kernel.
     """
-    global launches
     if x_skel.device.type == "cpu":
         return query_points_plain(plan, params, x_skel, hann_alpha,
                                   condition_code, live)
     if x_skel.device.type != "cuda":
         raise ValueError(f"unsupported device {x_skel.device}")
-    dev = x_skel.device
-    if x_skel.dtype != torch.float32:
-        raise TypeError(f"x_skel must be float32, got {x_skel.dtype}")
-    if x_skel.dim() != 2 or x_skel.shape[1] != 3:
-        raise ValueError(f"x_skel must be (N, 3), got {tuple(x_skel.shape)}")
-    if not x_skel.is_contiguous():
-        raise ValueError("x_skel must be contiguous")
-    _check_plan_for_kernel(plan)
-    n = x_skel.shape[0]
-    n_tiles = -(-n // TILE)
-    if live is None:
-        live = torch.ones((n_tiles,), dtype=torch.int32, device=dev)
-    if (live.device != dev or live.dtype != torch.int32
-            or tuple(live.shape) != (n_tiles,) or not live.is_contiguous()):
-        raise ValueError(
-            f"live must be a contiguous int32 ({n_tiles},) tensor on {dev}")
-    if condition_code is not None and condition_code.device != dev:
+    if condition_code is not None and condition_code.device != x_skel.device:
         raise ValueError("condition_code is on another device than x_skel")
-
-    nets = kernel_weights if kernel_weights is not None else \
-        make_kernel_weights(plan, params.get("non_rigid_mlp"),
-                            params["cnl_mlp"], condition_code)
-    for net in nets.values():
-        for t in (net["w_h"] + net["w_e"] + net["b"]
-                  + [net["w_out"], net["b_out"]]):
-            if t is not None and t.device != dev:
-                raise ValueError("parameters are on another device than "
-                                 "x_skel")
-
-    from humannerf_tpu_torch.ops._build import load_library
-    lib = load_library()
-    if lib.fused_mlp_tile() != TILE or lib.fused_mlp_max_depth() != _MAX_DEPTH:
-        raise RuntimeError("csrc/fused_mlp.cu and ops/fused_mlp.py disagree "
-                           "on TILE / MAX_DEPTH")
-    hann = [0.0] * _MAX_FREQ
-    if not plan.skip_nr:
-        hann[:plan.nr_multires] = hann_window_weights(float(hann_alpha),
-                                                      plan.nr_multires)
-    hann_c = (ctypes.c_float * _MAX_FREQ)(*hann)
-    cnl_desc, cnl_ptrs = _ptr_table(nets["cnl"])
-    nr_desc, nr_ptrs = (cnl_desc, cnl_ptrs) if plan.skip_nr \
-        else _ptr_table(nets["nr"])
-
-    out = torch.empty((n, 4), dtype=torch.float32, device=dev)
-    if n == 0:
-        return out
-    with torch.cuda.device(dev):
-        err = lib.fused_mlp_forward(
-            x_skel.data_ptr(), out.data_ptr(), n, live.data_ptr(), hann_c,
-            1 if plan.compute_dtype == torch.bfloat16 else 0,
-            1 if plan.skip_nr else 0, nr_desc, nr_ptrs, cnl_desc, cnl_ptrs,
-            torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"fused_mlp_forward failed to launch "
-                           f"(cudaError {err})")
-    launches += 1
-    return out
+    if kernel_weights is not None:
+        return launch_forward(plan, x_skel, hann_alpha, live, kernel_weights)
+    operands = kernel_operands(plan, params.get("non_rigid_mlp"),
+                               params["cnl_mlp"], condition_code)
+    slots, flat = _flatten_operands(operands)
+    meta = {name: {k: op[k] for k in ("depth", "width", "multires", "n_out")}
+            for name, op in operands.items()}
+    if live is not None:
+        live = live.detach()
+    return _FusedQuery.apply(plan, float(hann_alpha), live, slots, meta,
+                             x_skel, *flat)

@@ -2,7 +2,7 @@
 
 `raw2outputs` is also the plain version of the compositing kernel
 (ops/composite.py): the CPU tests run it, and on the card it is what the
-kernel is held against.
+kernel is held against. Training composites with it under autograd.
 """
 
 from __future__ import annotations
@@ -16,6 +16,24 @@ def sample_along_rays(near: torch.Tensor, far: torch.Tensor,
     t = torch.linspace(0.0, 1.0, n_samples, dtype=near.dtype,
                        device=near.device)
     return near[..., None] * (1.0 - t) + far[..., None] * t
+
+
+def stratified_sampling(z_vals: torch.Tensor,
+                        generator: torch.Generator | None = None,
+                        noise: torch.Tensor | None = None) -> torch.Tensor:
+    """Jitter samples uniformly within their bins. The uniform numbers in
+    [0, 1) come from `noise` (z_vals' shape) when given, else from
+    `generator` (which must live on z_vals' device)."""
+    mids = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
+    upper = torch.cat([mids, z_vals[..., -1:]], dim=-1)
+    lower = torch.cat([z_vals[..., :1], mids], dim=-1)
+    if noise is None:
+        noise = torch.rand(z_vals.shape, generator=generator,
+                           dtype=z_vals.dtype, device=z_vals.device)
+    elif noise.shape != z_vals.shape:
+        raise ValueError(f"noise has shape {tuple(noise.shape)}, expected "
+                         f"{tuple(z_vals.shape)}")
+    return lower + (upper - lower) * noise
 
 
 def raw2outputs(raw: torch.Tensor, raw_mask: torch.Tensor,

@@ -4,8 +4,9 @@ Run types: movement, freeview, tpose, tpose_pose_condition, novelview,
 novelview_all, novelpose, novelpose_eval, train_render. Each loads a
 checkpoint (the JAX package's pickle), iterates the matching dataset,
 renders frame by frame, scatters rays back into images, and writes PNG/mp4
-+ PSNR/SSIM where ground truth exists. LPIPS as an eval metric is not
-ported yet (ROADMAP.md item A1 brings models/lpips.py).
++ PSNR/SSIM/LPIPS (`eval.metrics`) where ground truth exists. Without
+converted VGG weights (`lpips.weights`) LPIPS runs on the seeded random
+trunk and its values are not comparable to published ones.
 """
 
 from __future__ import annotations
@@ -62,10 +63,6 @@ def resolve_render_mode(cfg, run_type: str, environ=None):
 
 def run(cfg, run_type: str, device=None):
     folder, cfg.ignore_non_rigid_motions = resolve_render_mode(cfg, run_type)
-    if "lpips" in cfg.eval.metrics:
-        raise NotImplementedError(
-            "LPIPS as an eval metric is not ported yet (ROADMAP.md item A1); "
-            "set eval.metrics to [psnr, ssim]")
     if cfg.multihead.head_num > 1:
         raise NotImplementedError(
             "multihead rendering is not ported yet: ROADMAP.md item A4")
@@ -81,9 +78,22 @@ def run(cfg, run_type: str, device=None):
     writer = ImageWriter(out_dir, folder)
     metrics = None
     if run_type in _EVAL_TYPES:
+        kw = {}
+        if "lpips" in cfg.eval.metrics:
+            from humannerf_tpu_torch.models.lpips import (
+                init_lpips_params, lpips_trunk_kind, make_lpips_metric_fn)
+            if lpips_trunk_kind(cfg.lpips.weights) == "random":
+                print("WARNING: LPIPS metric is running on the RANDOM VGG "
+                      "trunk (no converted weights at "
+                      f"{cfg.lpips.weights!r}); reported values are "
+                      "uncalibrated")
+            kw = {"lpips_fn": make_lpips_metric_fn(
+                      init_lpips_params(cfg.lpips.weights,
+                                        device=net.device)),
+                  "lpips_trunk": lpips_trunk_kind(cfg.lpips.weights)}
         metrics = MetricsWriter(out_dir, folder,
                                 dataset=cfg[run_type].get("dataset", "?"),
-                                metrics=cfg.eval.metrics)
+                                metrics=cfg.eval.metrics, **kw)
 
     bg = np.array(cfg.bgcolor, np.float32) / 255.0
     for step, item in enumerate(loader):

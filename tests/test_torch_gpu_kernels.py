@@ -5,7 +5,9 @@ one (`python -m pytest tests/test_torch_gpu_kernels.py -m gpu` on a machine
 with an H100). Covers what `chip_smoke.py` does not drive: every width the
 fused MLP kernel is instantiated for (64, 128, 192, 256), shallow and deep
 nets, sample counts other than 128 in the compositor, and the wrappers'
-refusals on CUDA tensors.
+refusals on CUDA tensors; and the three backward kernels (fused MLP,
+resample, scatter) against autograd through their plain versions at the same
+widths, small volumes and grids, with dead tiles, ragged sizes and masks.
 """
 
 import numpy as np
@@ -13,8 +15,9 @@ import pytest
 import torch
 
 from humannerf_tpu_torch.models import mlps
-from humannerf_tpu_torch.ops import composite, fused_mlp
+from humannerf_tpu_torch.ops import composite, fused_mlp, fused_warp
 from humannerf_tpu_torch.ops.raymarch import raw2outputs
+from humannerf_tpu_torch.utils.tree import flat_grads, leafify, rel_l2
 
 pytestmark = pytest.mark.gpu
 
@@ -141,3 +144,196 @@ def test_composite_wrapper_refuses_on_cuda(dev):
         composite.composite(raw, fg, z.t().contiguous().t(), d, bg)
     with pytest.raises(ValueError, match="expected"):
         composite.composite(raw, fg, z, d.cpu(), bg)
+
+
+# ---------------------------------------------------------------------------
+# backward kernels
+# ---------------------------------------------------------------------------
+
+# relative L2 per gradient tensor. float32: summation order (atomics) and,
+# with the non-rigid net, relu units near zero that the two forwards mask
+# differently; bfloat16: the kernel rounds dy before each product, autograd
+# rounds the gradient at each cast
+GRAD_TOL = {torch.float32: 1e-2, torch.bfloat16: 0.25}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("widths", [(64, 64), (128, 192), (128, 256),
+                                    (192, 128)])
+@pytest.mark.parametrize("skip_nr", [False, True])
+def test_fused_mlp_backward_kernel_matches_autograd(dev, dtype, widths,
+                                                    skip_nr):
+    plan, params, x, cc = _setup(dev, widths[0], widths[1], 3, 4, dtype,
+                                 skip_nr)
+    params["non_rigid_mlp"]["output"]["w"] *= 1e-2     # initial offset scale
+    live = torch.tensor([1, 0, 1, 1, 0, 1, 1, 1], dtype=torch.int32,
+                        device=dev)                    # 1000 -> 8 tiles
+    g = torch.randn((1000, 4), generator=torch.Generator().manual_seed(1)
+                    ).to(dev)
+
+    def run(query):
+        p = leafify(params)
+        xl = x.clone().requires_grad_(True)
+        cl = cc.clone().requires_grad_(True)
+        query(plan, p, xl, 4.3, cl, live).backward(g)
+        out = flat_grads(p)
+        out["dx"] = xl.grad
+        if cl.grad is not None:
+            out["cc"] = cl.grad
+        return out
+    before = fused_mlp.bwd_launches
+    gk = run(fused_mlp.query_points_fused)
+    torch.cuda.synchronize()
+    assert fused_mlp.bwd_launches == before + 1
+    gp = run(fused_mlp.query_points_plain)
+    gk = {k: v for k, v in gk.items() if k in gp}
+    assert set(gk) == set(gp)
+    assert float(gk["dx"][128:256].abs().max()) == 0.0      # dead tile
+    assert float(gk["dx"][:128].abs().max()) > 0
+    for k in gp:
+        assert gk[k].shape == gp[k].shape and gk[k].dtype == gp[k].dtype
+        assert bool(torch.isfinite(gk[k]).all())
+        if float(gp[k].abs().max()) > 0:
+            assert rel_l2(gk[k], gp[k]) <= GRAD_TOL[dtype], k
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fused_mlp_backward_kernel_deepest_plan_ragged(dev, dtype):
+    plan, params, x, cc = _setup(dev, 128, 256, 6, 12, dtype, False)
+    params["non_rigid_mlp"]["output"]["w"] *= 1e-2
+    x = x[:777].contiguous()
+    g = torch.randn((777, 4), generator=torch.Generator().manual_seed(2)
+                    ).to(dev)
+
+    def run(query):
+        p = leafify(params)
+        query(plan, p, x, 6.0, cc).backward(g)
+        return flat_grads(p)
+    gk, gp = run(fused_mlp.query_points_fused), \
+        run(fused_mlp.query_points_plain)
+    for k in gp:
+        assert rel_l2(gk[k], gp[k]) <= 2 * GRAD_TOL[dtype], k
+
+
+def test_fused_mlp_backward_wrapper_refuses_on_cuda(dev):
+    plan, params, x, cc = _setup(dev, 128, 256, 3, 4, torch.bfloat16, False)
+    ops = fused_mlp.kernel_operands(plan, params["non_rigid_mlp"],
+                                    params["cnl_mlp"], cc)
+    nets = fused_mlp.pack_kernel_weights(plan, ops, backward=True)
+    g = torch.zeros((1000, 4), device=dev)
+    dx, grads = fused_mlp.launch_backward(plan, x, g, 4.3, None, nets)
+    assert dx.shape == (1000, 3) and float(dx.abs().max()) == 0.0
+    assert float(grads["cnl"]["w_h"][1].abs().max()) == 0.0
+    with pytest.raises(ValueError, match="g must be"):
+        fused_mlp.launch_backward(plan, x, g[:, :3].contiguous(), 4.3, None,
+                                  nets)
+    with pytest.raises(ValueError, match="g must be"):
+        fused_mlp.launch_backward(plan, x, g.double(), 4.3, None, nets)
+    with pytest.raises(ValueError, match="backward=True"):
+        fused_mlp.launch_backward(
+            plan, x, g, 4.3, None, fused_mlp.pack_kernel_weights(plan, ops))
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_mlp.launch_backward(plan, x.cpu(), g.cpu(), 4.3, None, nets)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_mlp.launch_forward(plan, x.cpu(), 4.3, None, nets)
+
+
+def _resample_inputs(dev, K, D, G):
+    rng = np.random.RandomState(3)
+    vols = rng.rand(K, D, D + 2, D + 4).astype(np.float32)
+    vols[:, :, :2] = 0.0
+    Rs = np.stack([np.eye(3) * rng.uniform(0.8, 1.2)
+                   + 0.1 * rng.randn(3, 3) for _ in range(K)])
+    Ts = rng.uniform(-0.2, 0.2, (K, 3))
+    boxes = ([-1.0, -1.1, -0.9], [1.0, 0.9, 1.1], [-1.2, -1.2, -1.2],
+             [1.2, 1.3, 1.1])
+    cot = rng.randn(G ** 3, K).astype(np.float32)
+    cot[rng.rand(G ** 3) < 0.5] = 0.0
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+    return t(vols), t(Rs), t(Ts), [t(b) for b in boxes], t(cot)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(3, 8, 10), (24, 16, 21), (5, 32, 12)])
+def test_resample_backward_kernel_matches_autograd(dev, dtype, shape):
+    K, D, G = shape
+    vols, Rs, Ts, boxes, cot = _resample_inputs(dev, K, D, G)
+
+    def run(fn):
+        leaves = [t.clone().requires_grad_(True) for t in (vols, Rs, Ts)]
+        fn(*leaves, *boxes, G, dtype).backward(cot)
+        return [t.grad for t in leaves]
+    before = fused_warp.resample_launches
+    gk = run(fused_warp.resample_all_bones)
+    torch.cuda.synchronize()
+    assert fused_warp.resample_launches == before + 1
+    gp = run(fused_warp.resample_all_bones_plain)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for name, a, b in zip(("d_vols", "dA", "dT"), gk, gp):
+        assert a.shape == b.shape and a.dtype == torch.float32
+        assert rel_l2(a, b) <= tol, name
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(1000, 8), (4097, 16), (30000, 48)])
+def test_scatter_kernel_matches_autograd(dev, dtype, shape):
+    N, G = shape
+    rng = np.random.RandomState(4)
+    U = torch.from_numpy(rng.randn(G, G, G, 16).astype(np.float32)).to(dev)
+    U[..., 12] = U[..., 12].abs() + 0.2
+    pts = torch.from_numpy(rng.uniform(-1.45, 1.45, (N, 3))
+                           .astype(np.float32)).to(dev)
+    lo = torch.tensor([-1.2, -1.2, -1.2], device=dev)
+    hi = torch.tensor([1.2, 1.25, 1.15], device=dev)
+    live = torch.from_numpy(rng.rand(N) > 0.3).to(dev)
+    cot = torch.from_numpy(rng.randn(N, 4).astype(np.float32)).to(dev)
+
+    def run(kernel):
+        Ul = U.to(dtype).requires_grad_(True)
+        pl_ = pts.clone().requires_grad_(True)
+        if kernel:
+            x, s = fused_warp.sample_packed_grad(Ul, pl_, lo, hi, live)
+        else:
+            x, s = fused_warp.sample_packed_volume(
+                fused_warp.build_packed_volume(Ul), pl_, lo, hi, live)
+        torch.cat([x, s], dim=1).backward(cot)
+        return Ul.grad, pl_.grad
+    before = fused_warp.scatter_launches
+    dU, dp = run(True)
+    torch.cuda.synchronize()
+    assert fused_warp.scatter_launches == before + 1
+    dU_p, dp_p = run(False)
+    assert dU.dtype == dtype and dU.shape == (G, G, G, 16)
+    tol = 1e-4 if dtype == torch.float32 else 5e-2
+    assert rel_l2(dU, dU_p) <= tol and rel_l2(dp, dp_p) <= tol
+    assert float(dp[~live].abs().max()) == 0.0
+
+
+def test_warp_backward_wrappers_refuse_on_cuda(dev):
+    flat = torch.zeros(8, dtype=torch.int32, device=dev)
+    w3 = torch.zeros((8, 3), device=dev)
+    valid = torch.ones(8, dtype=torch.uint8, device=dev)
+    d = torch.zeros((8, 16), device=dev)
+    assert fused_warp.scatter_grad_volume(flat, w3, valid, d, 4).shape \
+        == (4, 4, 4, 16)
+    with pytest.raises(TypeError):
+        fused_warp.scatter_grad_volume(flat.long(), w3, valid, d, 4)
+    with pytest.raises(ValueError, match="shape"):
+        fused_warp.scatter_grad_volume(flat, w3, valid, d[:, :13], 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_warp.scatter_grad_volume(flat, w3.t().contiguous().t(), valid,
+                                       d, 4)
+    with pytest.raises(ValueError, match="expected"):
+        fused_warp.scatter_grad_volume(flat.cpu(), w3, valid, d, 4)
+    vols, Rs, Ts, boxes, cot = _resample_inputs(dev, 3, 8, 6)
+    with pytest.raises(ValueError, match="g must be"):
+        fused_warp.resample_backward(vols, Rs, Ts, *boxes, 6, torch.float32,
+                                     cot[:-1])
+    with pytest.raises(TypeError):
+        fused_warp.resample_backward(vols.double(), Rs, Ts, *boxes, 6,
+                                     torch.float32, cot)
+    with pytest.raises(TypeError, match="no kernel"):
+        fused_warp.resample_backward(vols, Rs, Ts, *boxes, 6, torch.float16,
+                                     cot)

@@ -44,9 +44,16 @@ def test_port_has_the_expected_files():
                  "humannerf_tpu_torch/ops/fused_mlp.py",
                  "humannerf_tpu_torch/ops/composite.py",
                  "humannerf_tpu_torch/ops/_build.py",
-                 "humannerf_tpu_torch/run.py", "chip_smoke.py"):
+                 "humannerf_tpu_torch/run.py",
+                 "humannerf_tpu_torch/train/__main__.py",
+                 "humannerf_tpu_torch/train/trainer.py",
+                 "humannerf_tpu_torch/train/loss.py",
+                 "humannerf_tpu_torch/train/optimizer.py",
+                 "humannerf_tpu_torch/train/modules.py",
+                 "humannerf_tpu_torch/models/lpips.py", "chip_smoke.py"):
         assert need in rel
-    for src in ("fused_mlp.cu", "composite.cu"):
+    for src in ("fused_mlp.cu", "composite.cu", "fused_mlp_bwd.cu",
+                "scatter.cu", "resample_bwd.cu", "fused_mlp_common.cuh"):
         assert os.path.isfile(os.path.join(REPO, "humannerf_tpu_torch",
                                            "csrc", src))
 
@@ -137,20 +144,49 @@ def test_unsupported_configuration_raises(name):
 
 @pytest.mark.parametrize("kw,item", [
     (dict(full_outputs=True), "A5"), (dict(head_mode="all"), "A4"),
-    (dict(head_mode="select"), "A4"), (dict(train=True), "A1"),
-    (dict(perturb=True), "A1")])
+    (dict(head_mode="select"), "A4"),
+    (dict(full_outputs=True, train=True), "A5"),
+    (dict(head_mode="all", perturb=True), "A4")])
 def test_unsupported_call_raises(kw, item):
     net = HumanNeRF(make_cfg(opts=small_opts()), device="cpu")
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md item {item}"):
         net.render_block({}, {}, {}, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item A1"):
-        net.prepare_frame({}, {}, 0.0, train=True)
+
+
+UNSUPPORTED_TRAINING = {
+    "frames_per_step": (["train.frames_per_step", "2"], {}, "A6"),
+    "mesh": ([], {"mesh": object()}, "A6"),
+    "multihead": (["multihead.head_num", "2"], {}, "A4"),
+    "tar_pretrained": (["modules.pretrained_path", "/nowhere/ckpt.tar"], {},
+                       "A4"),
+}
+
+
+@pytest.mark.parametrize("name", list(UNSUPPORTED_TRAINING))
+def test_unsupported_training_configuration_raises(name, tmp_path):
+    """None of them runs silently on another route."""
+    from humannerf_tpu_torch.train.trainer import Trainer
+    opts, kw, item = UNSUPPORTED_TRAINING[name]
+    cfg = make_cfg(opts=small_opts() + opts, base_dir=str(tmp_path))
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md item {item}"):
+        Trainer(cfg, log=lambda *a: None, device="cpu", **kw)
+
+
+def test_training_with_the_forward_only_compositor_raises():
+    from torch_port_util import synthetic_frame, to_torch
+    cfg = make_cfg(opts=small_opts(**{"pallas.composite": True}))
+    net = HumanNeRF(cfg, device="cpu")
+    frame, rays = synthetic_frame(16, n_rays=8)
+    with pytest.raises(ValueError, match="no gradient"):
+        net.render_rays(net.init_params(0), to_torch(frame), to_torch(rays),
+                        1.0, train=True)
 
 
 def test_lpips_metric_and_multihead_eval_raise():
     from humannerf_tpu_torch.render import run
-    with pytest.raises(NotImplementedError, match="LPIPS"):
-        run(make_cfg(opts=["eval.metrics", "['lpips', 'psnr']"]), "movement",
+    with pytest.raises(NotImplementedError, match="A4"):
+        run(make_cfg(opts=["eval.metrics", "['lpips', 'psnr']",
+                           "multihead.head_num", "2"]), "movement",
             device="cpu")
 
 
@@ -182,12 +218,23 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
         fused_mlp._check_plan_for_kernel(wide)
 
 
-def test_build_module_is_inert_without_a_compiler():
+def test_build_module_is_inert_without_a_compiler(tmp_path, monkeypatch):
     """Importing ops/_build.py builds nothing; its sources are in the repo
     and the build directory is ignored by git."""
     from humannerf_tpu_torch.ops import _build
     names = [os.path.basename(s) for s in _build.sources()]
-    assert names == ["composite.cu", "fused_mlp.cu"]
+    assert names == ["composite.cu", "fused_mlp.cu", "fused_mlp_bwd.cu",
+                     "resample_bwd.cu", "scatter.cu"]
+    a = _build._digest(_build.sources())
+    assert len(a) == 16 and a == _build._digest(_build.sources())
+    # a shared header is part of the build's hash: an edit to one builds anew
+    monkeypatch.setattr(_build, "CSRC_DIR", str(tmp_path))
+    (tmp_path / "k.cu").write_text('#include "k.cuh"\n')
+    (tmp_path / "k.cuh").write_text("#define ROWS 64\n")
+    before = _build._digest(_build.sources())
+    (tmp_path / "k.cuh").write_text("#define ROWS 32\n")
+    assert _build._digest(_build.sources()) != before
+    monkeypatch.undo()
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     ignore = open(os.path.join(REPO, ".gitignore")).read().split()
