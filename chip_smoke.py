@@ -152,9 +152,13 @@ def kernel_device_ms(fn, kernel_key: str, iters: int) -> float:
         torch.cuda.synchronize()
     rows = [(e.self_device_time_total, e.count) for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and kernel_key in e.key]
-    if sum(c for _, c in rows) != iters:
+    # more records than calls: the key names other kernels too. Fewer: the
+    # profiler dropped a record (it does, now and then, on the H100 for the
+    # ~7 ms backward kernel), so the mean is taken over the records it kept
+    seen = sum(c for _, c in rows)
+    if not 0 < seen <= iters:
         fail(f"profiler saw {rows} launches of {kernel_key}, expected {iters}")
-    return sum(t for t, _ in rows) / 1e3 / iters
+    return sum(t for t, _ in rows) / 1e3 / seen
 
 
 # ---------------------------------------------------------------------------
@@ -184,7 +188,8 @@ def phase_build():
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
             name = ln.split("'")[1]
-            for key in ("fused_mlp_bwd_kernel", "fused_mlp_kernel",
+            for key in ("fused_mlp_bwd_bf16_kernel", "fused_mlp_bwd_kernel",
+                        "fused_mlp_bf16_kernel", "fused_mlp_kernel",
                         "composite", "scatter", "resample", "trilerp"):
                 if key in name:
                     # K5 reads bf16 rows as unsigned short (mangled ItE)
@@ -192,7 +197,7 @@ def phase_build():
                                   or "ItE" in name else
                                   "<f32>" if "IfE" in name else "")
                     break
-        elif name and ("registers" in ln or "spill" in ln):
+        elif name and ("Used" in ln or "spill" in ln):
             usage.setdefault(name, []).append(
                 ln.replace("ptxas info    :", "").strip())
     emit("build", seconds=round(time.time() - t0, 2),
@@ -201,6 +206,10 @@ def phase_build():
                            "f32": lib.fused_mlp_blocks_per_sm(0)},
          k2_resident_blocks={"bf16": lib.fused_mlp_bwd_grid(1),
                              "f32": lib.fused_mlp_bwd_grid(0)},
+         smem_bytes={"k1_bf16": lib.fused_mlp_smem_bytes(1),
+                     "k1_f32": lib.fused_mlp_smem_bytes(0),
+                     "k2_bf16": lib.fused_mlp_bwd_smem_bytes(1),
+                     "k2_f32": lib.fused_mlp_bwd_smem_bytes(0)},
          ptxas=usage)
 
 
@@ -215,6 +224,37 @@ K1_VARIANTS = (("bf16", torch.bfloat16, False), ("f32", torch.float32, False),
 # plain bf16 version is itself this far from the f32 one.
 K1_TOL = {torch.float32: 5e-4, torch.bfloat16: 8e-2}
 K6_TOL = 1e-4   # log-space prefix sum vs cumprod, float32
+# names of the fused-MLP kernels in a profiler trace, by compute type
+K1_KEY = {torch.bfloat16: "fused_mlp_bf16_kernel",
+          torch.float32: "fused_mlp_kernel"}
+K2_KEY = {torch.bfloat16: "fused_mlp_bwd_bf16_kernel",
+          torch.float32: "fused_mlp_bwd_kernel"}
+
+
+def matmul_chain_ms(plan, n_rows: int, dev) -> float:
+    """CUDA-event time of the plan's hidden-layer products (6 non-rigid + 8
+    canonical at the default widths; skip layers with their concatenated
+    input) as bfloat16 torch.matmul over n_rows rows: a yardstick of what the
+    library makes of K1's shapes. The port never calls it."""
+    nets = [(plan.cnl_depth, plan.cnl_width, plan.cnl_embed_dim,
+             plan.cnl_skips)]
+    if not plan.skip_nr:
+        nets.append((plan.nr_depth, plan.nr_width, plan.nr_embed_dim,
+                     plan.nr_skips))
+    shapes = []
+    for depth, width, edim, skips in nets:
+        shapes.append((edim, width))
+        shapes += [(width + (edim if li in skips else 0), width)
+                   for li in range(1, depth)]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    ins = [torch.randn((n_rows, k), generator=gen, device=dev,
+                       dtype=torch.bfloat16) for k, _ in shapes]
+    ws = [torch.randn((k, n), generator=gen, device=dev,
+                      dtype=torch.bfloat16) for k, n in shapes]
+    ms = time_ms(lambda: [torch.matmul(a, w) for a, w in zip(ins, ws)],
+                 warm=2, iters=10)
+    del ins, ws
+    return ms
 
 
 def phase_kernels(net: HumanNeRF, params: dict, n_rays: int) -> dict:
@@ -269,12 +309,16 @@ def phase_kernels(net: HumanNeRF, params: dict, n_rays: int) -> dict:
         # timed as the serving path calls it: operands prepared once a frame
         kw = fused_mlp.make_kernel_weights(plan, sub["non_rigid_mlp"],
                                            sub["cnl_mlp"], cc)
-        ms = time_ms(lambda: fused_mlp.query_points_fused(
-            plan, sub, x, alpha, cc, live, kernel_weights=kw), warm=1,
-            iters=5)
+        def k1():
+            fused_mlp.query_points_fused(plan, sub, x, alpha, cc, live,
+                                         kernel_weights=kw)
+        ms = time_ms(k1, warm=1, iters=5)
+        device_ms = kernel_device_ms(k1, K1_KEY[dt], iters=5)
         plain_ms = time_ms(lambda: fused_mlp.query_points_plain(
             plan, sub, x, alpha, cc, live), warm=1, iters=2)
         n_live = int(live.sum()) * fused_mlp.TILE
+        chain_ms = matmul_chain_ms(plan, n_live, dev) \
+            if dt == torch.bfloat16 else None
         flops = n_live * plan.flops_per_sample()
         w_bytes = sum(t.numel() * t.element_size()
                       for net_w in kw.values()
@@ -292,8 +336,10 @@ def phase_kernels(net: HumanNeRF, params: dict, n_rays: int) -> dict:
             "tolerance": K1_TOL[dt], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": None, "n": N, "live_share": live_frac,
-            "tflops": flops / (ms * 1e-3) / 1e12}
+            "library_ms": None, "device_ms": device_ms,
+            "matmul_chain_ms": chain_ms, "n": N, "live_share": live_frac,
+            "tflops": flops / (device_ms * 1e-3) / 1e12,
+            "bound_share": max(t_ops, t_bytes) / device_ms}
         emit("kernels", **results[name], err_ragged=err_r, finite=finite,
              plain_vs_f32=plain_vs_f32)
         if not finite:
@@ -717,8 +763,10 @@ def phase_kernels_backward(net: HumanNeRF, params: dict, params_init: dict,
         ops = fused_mlp.kernel_operands(
             plan, sub["non_rigid_mlp"], sub["cnl_mlp"], cc)
         nets = fused_mlp.pack_kernel_weights(plan, ops, backward=True)
-        ms = time_ms(lambda: fused_mlp.launch_backward(
-            plan, x, g, alpha, live, nets), warm=1, iters=3)
+        def k2():
+            fused_mlp.launch_backward(plan, x, g, alpha, live, nets)
+        ms = time_ms(k2, warm=1, iters=3)
+        device_ms = kernel_device_ms(k2, K2_KEY[dt], iters=3)
         # the plain backward over every chunk of the same n samples, summed
         p = leafify(sub)
         plain_ms = backward_ms(
@@ -744,8 +792,10 @@ def phase_kernels_backward(net: HumanNeRF, params: dict, params_init: dict,
             "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": None, "n": n, "live_share": live_share,
-            "tflops": flops / (ms * 1e-3) / 1e12}
+            "library_ms": None, "device_ms": device_ms, "n": n,
+            "live_share": live_share,
+            "tflops": flops / (device_ms * 1e-3) / 1e12,
+            "bound_share": max(t_ops, t_bytes) / device_ms}
         emit("kernels", **res, finite=finite, accuracy=accuracy,
              rel_l2={k: round(v, 6) for k, v in sorted(errs.items())})
         if not finite:

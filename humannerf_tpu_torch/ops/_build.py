@@ -107,17 +107,24 @@ def load_library():
     lib.fused_mlp_max_depth.restype = ci
     lib.fused_mlp_blocks_per_sm.restype = ci
     lib.fused_mlp_blocks_per_sm.argtypes = [ci]
+    lib.fused_mlp_smem_bytes.restype = ci
+    lib.fused_mlp_smem_bytes.argtypes = [ci]
+    lib.fused_mlp_bwd_smem_bytes.restype = ci
+    lib.fused_mlp_bwd_smem_bytes.argtypes = [ci]
     lib.fused_mlp_forward.restype = ci
     lib.fused_mlp_forward.argtypes = [vp, vp, ll, vp, vp, ci, ci, vp, vp,
-                                      vp, vp, vp]
+                                      vp, vp, vp, vp]
     lib.composite_forward.restype = ci
     lib.composite_forward.argtypes = [vp, vp, vp, vp, vp, vp, vp, ll, ci, vp]
     lib.fused_mlp_bwd_grid.restype = ci
     lib.fused_mlp_bwd_grid.argtypes = [ci]
     lib.fused_mlp_bwd_block_rows.restype = ci
+    lib.fused_mlp_bwd_block_rows.argtypes = [ci]
+    lib.fused_mlp_bwd_scratch_elems.restype = ll
+    lib.fused_mlp_bwd_scratch_elems.argtypes = [ci, ci, vp, vp]
     lib.fused_mlp_backward.restype = ci
     lib.fused_mlp_backward.argtypes = [vp, vp, vp, ll, vp, vp, ci, ci, vp, vp,
-                                       vp, vp, vp, ll, ci, vp]
+                                       vp, vp, vp, ll, ci, vp, vp]
     lib.scatter_volume_backward.restype = ci
     lib.scatter_volume_backward.argtypes = [vp, vp, vp, vp, vp, ll, ci, vp]
     lib.resample_backward.restype = ci

@@ -9,8 +9,10 @@ The per-sample chain
 is the operation core of the renderer. `query_points_fused` is the wrapper
 of the hand-written CUDA kernel `csrc/fused_mlp.cu` (`fused_mlp_forward`),
 which replaces the Pallas TPU kernel `_fwd_call` / `_fwd_kernel`; it keeps
-the whole chain in shared memory, 64 samples (half a liveness tile of
-`TILE`) a block.
+the whole chain in shared memory. In bfloat16 a block of a persistent grid
+works on one liveness tile of `TILE` samples at a time with wgmma, its
+weights streamed into shared memory by cp.async.bulk in the chunks that
+`pack_kernel_weights` lays out; float32 works on half-tiles with fmaf.
 `query_points_plain` is its plain PyTorch version, built from models/mlps.py
 and models/embedders.py. A CPU tensor takes the plain version; a CUDA
 tensor launches the kernel or raises.
@@ -18,7 +20,7 @@ tensor launches the kernel or raises.
 Under autograd the CUDA route is a `torch.autograd.Function`: forward is the
 kernel above, backward is `csrc/fused_mlp_bwd.cu` (`fused_mlp_backward`),
 which replaces the Pallas TPU kernel `_bwd_call` / `_bwd_kernel`: it
-recomputes the forward per block of samples and returns dx and every dW and
+recomputes the forward per tile of samples and returns dx and every dW and
 db. The Function's inputs are the kernel's logical operands (slices of the
 parameters, the first non-rigid bias with the condition code folded in), so
 the gradients of the parameters' other parts, and of the condition code,
@@ -205,22 +207,51 @@ def kernel_operands(plan: Plan, nr_params, cnl_params, condition_code):
     return nets
 
 
+CHUNK_ROWS = 64     # input rows of a bf16 weight chunk (128 bytes a column)
+
+
+def _swizzle_index(n: int, device) -> torch.Tensor:
+    """(n, 64) positions: entry (r, p) is the element that the 128-byte
+    swizzle stores at position p of row r. Row r's 16-byte groups (8
+    elements) are permuted by XOR with r % 8; the map is its own inverse."""
+    r = torch.arange(n, device=device)[:, None]
+    p = torch.arange(CHUNK_ROWS, device=device)[None, :]
+    return ((p >> 3) ^ (r & 7)) * 8 + (p & 7)
+
+
+def swizzled_chunks(w: torch.Tensor) -> torch.Tensor:
+    """(K, N) matrix in (in, out) layout -> (ceil(K / 64), N, 64) bfloat16:
+    chunk c holds input rows 64c .. 64c + 63 (zero past K) as N rows of 64,
+    i.e. the transposed (out, in) block, each row of 128 bytes swizzled as
+    wgmma's 128-byte-swizzle descriptors and the kernels' shared-memory
+    layout expect. One chunk is what the kernels' producer copies into a
+    stage with one cp.async.bulk; read K-major it is B of h W, read MN-major
+    it is B of dy W^T."""
+    K, N = w.shape
+    C = -(-K // CHUNK_ROWS)
+    wp = torch.zeros((C * CHUNK_ROWS, N), dtype=torch.bfloat16,
+                     device=w.device)
+    wp[:K] = w
+    t = wp.reshape(C, CHUNK_ROWS, N).transpose(1, 2)    # t[c, n, k]
+    return t.gather(2, _swizzle_index(N, w.device).expand(C, N, CHUNK_ROWS))
+
+
 def pack_kernel_weights(plan: Plan, operands, backward: bool = False):
     """Logical operands -> the tensors the kernels read.
 
     Weight matrices are cast to the compute dtype once here; biases stay
     float32; everything is contiguous; w_e is zero-padded to a multiple of
     16 rows (`epad`). In bfloat16 the hidden-layer matrices w_h / w_e are
-    stored transposed, (out, in): the kernel's tensor-core fragments then
-    load pairs along the input dimension as whole words. backward: also
-    w_h_t / w_e_t, the (out, in) copies the backward kernel multiplies dy
-    with (in bfloat16 the same tensors as w_h / w_e).
+    `swizzled_chunks`; w_out stays (width, n_out). In float32 every matrix
+    stays (in, out), and backward=True adds w_h_t / w_e_t, the (out, in)
+    copies the float32 backward multiplies dy with (bfloat16 reads the
+    chunks transposed: there they are lists of None).
     """
     dt = plan.compute_dtype
-    transposed = dt == torch.bfloat16
+    chunked = dt == torch.bfloat16
 
     def aligned(t):
-        # the kernel reads operands as 8- to 32-byte words; a contiguous
+        # the kernels read operands as 8- to 32-byte words; a contiguous
         # view into a larger tensor may start anywhere
         t = t.contiguous()
         return t if t.data_ptr() % 32 == 0 else t.clone()
@@ -228,8 +259,10 @@ def pack_kernel_weights(plan: Plan, operands, backward: bool = False):
     def out_cast(w):
         return aligned(w.detach().to(dt))
 
-    def cast(w, t):
-        return None if w is None else out_cast(w.t() if t else w)
+    def hidden(w):
+        if w is None:
+            return None
+        return swizzled_chunks(w.detach()) if chunked else out_cast(w)
 
     def f32(b):
         return aligned(b.detach().to(torch.float32))
@@ -243,16 +276,19 @@ def pack_kernel_weights(plan: Plan, operands, backward: bool = False):
         net = dict(
             depth=op["depth"], width=op["width"], multires=op["multires"],
             epad=epad, edim=edim, n_out=op["n_out"],
-            w_h=[cast(w, transposed) for w in op["w_h"]],
-            w_e=[cast(w, transposed) for w in w_e],
+            w_h=[hidden(w) for w in op["w_h"]],
+            w_e=[hidden(w) for w in w_e],
             b=[f32(b) for b in op["b"]],
             w_out=out_cast(op["w_out"]), b_out=f32(op["b_out"]))
         if backward:
-            if transposed:
-                net["w_h_t"], net["w_e_t"] = net["w_h"], net["w_e"]
+            if chunked:
+                net["w_h_t"] = [None] * op["depth"]
+                net["w_e_t"] = [None] * op["depth"]
             else:
-                net["w_h_t"] = [cast(w, True) for w in op["w_h"]]
-                net["w_e_t"] = [cast(w, True) for w in w_e]
+                net["w_h_t"] = [None if w is None else out_cast(w.t())
+                                for w in op["w_h"]]
+                net["w_e_t"] = [None if w is None else out_cast(w.t())
+                                for w in w_e]
         nets[name] = net
     return nets
 
@@ -428,6 +464,13 @@ def _hann_table(plan: Plan, hann_alpha: float):
     return (ctypes.c_float * _MAX_FREQ)(*hann)
 
 
+def _tile_counter(is_bf16: bool, device):
+    """The bfloat16 kernels' persistent grid takes tiles from a counter that
+    starts at zero on every launch; float32 needs none."""
+    return torch.zeros((1,), dtype=torch.int32, device=device) \
+        if is_bf16 else None
+
+
 def launch_forward(plan: Plan, x_skel, hann_alpha: float, live, nets):
     """The forward kernel on prepared operands: x_skel (N, 3) -> (N, 4)."""
     global launches
@@ -441,12 +484,14 @@ def launch_forward(plan: Plan, x_skel, hann_alpha: float, live, nets):
     out = torch.empty((n, 4), dtype=torch.float32, device=dev)
     if n == 0:
         return out
+    is_bf16 = plan.compute_dtype == torch.bfloat16
+    next_tile = _tile_counter(is_bf16, dev)
     with torch.cuda.device(dev):
         err = lib.fused_mlp_forward(
             x_skel.data_ptr(), out.data_ptr(), n, live.data_ptr(),
-            _hann_table(plan, hann_alpha),
-            1 if plan.compute_dtype == torch.bfloat16 else 0,
+            _hann_table(plan, hann_alpha), 1 if is_bf16 else 0,
             1 if plan.skip_nr else 0, nr_desc, nr_ptrs, cnl_desc, cnl_ptrs,
+            None if next_tile is None else next_tile.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_mlp_forward failed to launch "
@@ -507,21 +552,23 @@ def launch_backward(plan: Plan, x_skel, g, hann_alpha: float, live, nets):
     dx = torch.empty((n, 3), dtype=torch.float32, device=dev)
     if n == 0:
         return dx, grads
-    is_bf16 = 1 if plan.compute_dtype == torch.bfloat16 else 0
+    is_bf16 = plan.compute_dtype == torch.bfloat16
+    next_tile = _tile_counter(is_bf16, dev)
     with torch.cuda.device(dev):
-        grid = lib.fused_mlp_bwd_grid(is_bf16)
+        grid = lib.fused_mlp_bwd_grid(int(is_bf16))
         if grid <= 0:
             raise RuntimeError("fused_mlp_bwd_grid failed")
-        grid = min(grid, -(-n // lib.fused_mlp_bwd_block_rows()))
-        per_block = sum(net["depth"] * net["width"] for net in nets.values()) \
-            * lib.fused_mlp_bwd_block_rows()
+        grid = min(grid, -(-n // lib.fused_mlp_bwd_block_rows(int(is_bf16))))
+        per_block = lib.fused_mlp_bwd_scratch_elems(
+            int(is_bf16), 1 if plan.skip_nr else 0, nr_desc, cnl_desc)
         scratch = torch.empty((grid * per_block,), dtype=plan.compute_dtype,
                               device=dev)
         err = lib.fused_mlp_backward(
             x_skel.data_ptr(), g.data_ptr(), dx.data_ptr(), n,
-            live.data_ptr(), _hann_table(plan, hann_alpha), is_bf16,
+            live.data_ptr(), _hann_table(plan, hann_alpha), int(is_bf16),
             1 if plan.skip_nr else 0, nr_desc, nr_ptrs, cnl_desc, cnl_ptrs,
             scratch.data_ptr(), per_block, grid,
+            None if next_tile is None else next_tile.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_mlp_backward failed to launch "

@@ -163,6 +163,20 @@ def test_condition_code_fold(setup):
     np.testing.assert_allclose(b0.numpy(), np.asarray(kw[1]), atol=1e-5)
 
 
+def _unchunk(chunks, rows):
+    """The inverse of the bf16 weight layout, written out independently of
+    the module: chunk c, row n, position 8 * ((k // 8) ^ (n % 8)) + k % 8
+    holds w[64 c + k, n] (the 128-byte swizzle of 16-byte groups)."""
+    a = chunks.float().numpy()
+    C, N, W = a.shape
+    assert W == 64
+    k = np.arange(64)
+    out = np.zeros((C * 64, N), np.float32)
+    for n in range(N):
+        out[:, n] = a[:, n, 8 * ((k // 8) ^ (n % 8)) + k % 8].reshape(-1)
+    return out[:rows]
+
+
 @pytest.mark.parametrize("dtype", list(DT))
 def test_make_kernel_weights_layout(setup, dtype):
     p, _, cc = setup
@@ -172,21 +186,30 @@ def test_make_kernel_weights_layout(setup, dtype):
         torch.from_numpy(cc))
     nr, cnl = nets["nr"], nets["cnl"]
     assert (nr["epad"], cnl["epad"]) == (48, 64)
-    # (in, out) in float32; bf16 stores hidden-layer matrices as (out, in)
-    flip = dtype == "bfloat16"
+    # (in, out) in float32; bf16 stores hidden-layer matrices as k-chunks of
+    # 64 input rows, (chunks, out, 64), swizzled
+    chunked = dtype == "bfloat16"
 
     def shapes(ws):
-        return [None if w is None else tuple(w.t().shape if flip else w.shape)
-                for w in ws]
-    assert shapes(nr["w_e"]) == [(48, 16), None, (48, 16)]
-    assert shapes(nr["w_h"]) == [None, (16, 16), (16, 16)]
-    assert shapes(cnl["w_e"]) == [(64, 32), None, (64, 32), None]
+        return [None if w is None else tuple(w.shape) for w in ws]
+    if chunked:
+        assert shapes(nr["w_e"]) == [(1, 16, 64), None, (1, 16, 64)]
+        assert shapes(nr["w_h"]) == [None, (1, 16, 64), (1, 16, 64)]
+        assert shapes(cnl["w_e"]) == [(1, 32, 64), None, (1, 32, 64), None]
+        w0 = torch.from_numpy(_unchunk(cnl["w_e"][0], 64))
+        wh = torch.from_numpy(_unchunk(nr["w_h"][2], 16))
+    else:
+        assert shapes(nr["w_e"]) == [(48, 16), None, (48, 16)]
+        assert shapes(nr["w_h"]) == [None, (16, 16), (16, 16)]
+        assert shapes(cnl["w_e"]) == [(64, 32), None, (64, 32), None]
+        w0, wh = cnl["w_e"][0].float(), nr["w_h"][2].float()
     assert tuple(nr["w_out"].shape) == (16, 3)
     assert tuple(cnl["w_out"].shape) == (32, 4)
-    w0 = cnl["w_e"][0].t() if flip else cnl["w_e"][0]
     assert float(w0[63:].abs().max()) == 0.0               # padded rows
     ref = to_torch(p)["cnl_mlp"]["pts_linears"][0]["w"].to(tp.compute_dtype)
-    assert torch.equal(w0[:63], ref)
+    assert torch.equal(w0[:63], ref.float())
+    ref_h = to_torch(p)["non_rigid_mlp"]["block_mlps"][2]["w"][:16]
+    assert torch.equal(wh, ref_h.to(tp.compute_dtype).float())
     for net in (nr, cnl):
         ws = [w for w in net["w_h"] + net["w_e"] + [net["w_out"]]
               if w is not None]
@@ -197,6 +220,24 @@ def test_make_kernel_weights_layout(setup, dtype):
                 for t in net["w_h"] + net["w_e"] + net["b"]
                 + [net["w_out"], net["b_out"]])
     assert n_ops == tp.n_tensors()
+
+
+@pytest.mark.parametrize("shape", [(16, 16), (48, 128), (63, 192),
+                                   (100, 64), (256, 256)])
+def test_swizzled_chunks_unpack_exactly(shape):
+    K, N = shape
+    w = torch.from_numpy(np.random.RandomState(K + N).randn(K, N)
+                         .astype(np.float32))
+    chunks = fused_mlp.swizzled_chunks(w)
+    C = -(-K // 64)
+    assert chunks.shape == (C, N, 64) and chunks.dtype == torch.bfloat16
+    assert chunks.is_contiguous()
+    full = _unchunk(chunks, C * 64)
+    assert np.array_equal(full[:K], w.to(torch.bfloat16).float().numpy())
+    assert not full[K:].any()                       # zero rows past K
+    # every 16-byte group of a row moved as a whole, by XOR with row % 8
+    a = chunks.float().numpy()
+    assert np.array_equal(a[0, 9, 8:16], full[0:8, 9])    # 9 % 8 = 1: 0 <-> 1
 
 
 @pytest.mark.parametrize("eps", [0.0, 0.3])

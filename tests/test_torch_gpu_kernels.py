@@ -4,7 +4,9 @@ Marked `gpu`: every test here needs a CUDA device and nvcc and skips without
 one (`python -m pytest tests/test_torch_gpu_kernels.py -m gpu` on a machine
 with an H100). Covers what `chip_smoke.py` does not drive: every width the
 fused MLP kernel is instantiated for (64, 128, 192, 256), shallow and deep
-nets, sample counts other than 128 in the compositor, and the wrappers'
+nets, tile-liveness patterns of the persistent grid (every tile dead, fewer
+live tiles than SMs, one live tile at the ragged end), sample counts other
+than 128 in the compositor, and the wrappers'
 refusals on CUDA tensors; the three backward kernels (fused MLP,
 resample, scatter) against autograd through their plain versions at the same
 widths, small volumes and grids, with dead tiles, ragged sizes and masks; and
@@ -215,6 +217,61 @@ def test_fused_mlp_backward_kernel_deepest_plan_ragged(dev, dtype):
         run(fused_mlp.query_points_plain)
     for k in gp:
         assert rel_l2(gk[k], gp[k]) <= 2 * GRAD_TOL[dtype], k
+
+
+def _liveness_case(case, dev):
+    """(n, live) for a tile pattern the persistent grid must handle."""
+    if case == "all_dead":
+        n = 4096
+        live = torch.zeros(32, dtype=torch.int32)
+    elif case == "few_live":             # fewer live tiles than SMs
+        n = 64 * 128
+        live = torch.zeros(64, dtype=torch.int32)
+        live[[3, 17, 40, 41, 63]] = 1
+    else:                                # one live tile, the ragged last
+        n = 300 * 128 + 77
+        live = torch.zeros(301, dtype=torch.int32)
+        live[-1] = 1
+    return n, live.to(dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", ["all_dead", "few_live", "last_live"])
+def test_fused_mlp_kernels_liveness_patterns(dev, dtype, case):
+    plan, params, _, cc = _setup(dev, 128, 256, 3, 4, dtype, False)
+    params["non_rigid_mlp"]["output"]["w"] *= 1e-2
+    n, live = _liveness_case(case, dev)
+    gen = torch.Generator().manual_seed(5)
+    x = (torch.randn((n, 3), generator=gen) * 0.5).to(dev)
+    g = torch.randn((n, 4), generator=gen).to(dev)
+    alive = torch.repeat_interleave(live > 0, fused_mlp.TILE)[:n]
+
+    def run(query):
+        p = leafify(params)
+        xl = x.clone().requires_grad_(True)
+        out = query(plan, p, xl, 4.3, cc, live)
+        out.backward(g)
+        grads = flat_grads(p)
+        grads["dx"] = xl.grad
+        return out.detach(), grads
+    before = (fused_mlp.launches, fused_mlp.bwd_launches)
+    out, gk = run(fused_mlp.query_points_fused)
+    torch.cuda.synchronize()
+    assert (fused_mlp.launches, fused_mlp.bwd_launches) == \
+        (before[0] + 1, before[1] + 1)
+    ref, gp = run(fused_mlp.query_points_plain)
+    assert out.shape == (n, 4) and bool(torch.isfinite(out).all())
+    assert float(out[~alive].abs().max()) == 0.0
+    assert float(gk["dx"][~alive].abs().max()) == 0.0
+    if case == "all_dead":
+        assert all(float(v.abs().max()) == 0.0 for v in gk.values())
+        return
+    assert float((out - ref).abs().max()) <= TOL[dtype]
+    assert float(out[alive].abs().max()) > 0.05
+    for k in gp:
+        assert bool(torch.isfinite(gk[k]).all()), k
+        if float(gp[k].abs().max()) > 0:
+            assert rel_l2(gk[k], gp[k]) <= GRAD_TOL[dtype], k
 
 
 def test_fused_mlp_backward_wrapper_refuses_on_cuda(dev):

@@ -267,6 +267,15 @@ def test_kernel_operands_are_differentiable_views(setup):
     nets = fused_mlp.pack_kernel_weights(tp, ops, backward=True)
     assert tuple(nets["nr"]["w_e_t"][0].shape) == (16, 48)   # (out, epad)
     assert tuple(nets["cnl"]["w_h_t"][1].shape) == (32, 32)
+    assert torch.equal(nets["cnl"]["w_h_t"][1],
+                       params["cnl_mlp"]["pts_linears"][1]["w"].detach().t())
+    # bfloat16 reads the chunks transposed: no (out, in) copies
+    _, tp16 = _plans("bfloat16")
+    nets16 = fused_mlp.pack_kernel_weights(tp16, ops, backward=True)
+    assert nets16["cnl"]["w_h_t"] == [None] * 4
+    assert nets16["nr"]["w_e_t"] == [None] * 3
+    assert tuple(nets16["nr"]["w_e"][0].shape) == (1, 16, 64)
+    assert tuple(nets16["cnl"]["w_h"][1].shape) == (1, 32, 64)
     g = fused_mlp._grad_buffers(nets["cnl"], "cpu")
     assert tuple(g["w_e"][0].shape) == (64, 32) and g["w_h"][0] is None
     assert all(t.data_ptr() % 32 == 0 for t in g["b"])
