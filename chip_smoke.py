@@ -18,11 +18,12 @@ The last line is
 with its launches, error and times.
 
 Optional: --phases device,build,kernels,... runs a subset (for bring-up);
-the extra phases `profile`, `profile_analytic` and `profile_train` (not run
-by default) trace one frame on the default route / one frame on the
-analytic-band route / one training step with torch.profiler and print where
-the time goes; `step_accuracy` reads how far each kernel alone moves a bf16
-step's gradients from the float32 step's.
+the extra phases `profile`, `profile_analytic`, `profile_train` and
+`profile_train_f32` (not run by default) trace one frame on the default
+route / one frame on the analytic-band route / one bf16 / one float32
+training step with torch.profiler and print where the time goes;
+`step_accuracy` reads how far each kernel alone moves a bf16 step's
+gradients from the float32 step's.
 """
 
 from __future__ import annotations
@@ -65,7 +66,7 @@ ALL_PHASES = ("device", "build", "kernels", "render", "render_f32",
               "render_composite", "checkpoint", "ignore_non_rigid",
               "render_analytic", "cli_analytic", "train", "train_f32", "train_resume")
 EXTRA_PHASES = ("profile", "profile_analytic", "profile_train",
-                "step_accuracy")
+                "profile_train_f32", "step_accuracy")
 CHUNK = 8192          # rays per block, as render.py caps it
 N_RAYS = 65536        # rays per frame
 N_FRAMES = 2          # requests, each with its own pose
@@ -234,8 +235,9 @@ K2_KEY = {torch.bfloat16: "fused_mlp_bwd_bf16_kernel",
 def matmul_chain_ms(plan, n_rows: int, dev) -> float:
     """CUDA-event time of the plan's hidden-layer products (6 non-rigid + 8
     canonical at the default widths; skip layers with their concatenated
-    input) as bfloat16 torch.matmul over n_rows rows: a yardstick of what the
-    library makes of K1's shapes. The port never calls it."""
+    input) as torch.matmul in the plan's compute type over n_rows rows: a
+    yardstick of what the library makes of K1's shapes. float32 runs with
+    TF32 off, as K1 computes. The port never calls it."""
     nets = [(plan.cnl_depth, plan.cnl_width, plan.cnl_embed_dim,
              plan.cnl_skips)]
     if not plan.skip_nr:
@@ -246,13 +248,19 @@ def matmul_chain_ms(plan, n_rows: int, dev) -> float:
         shapes.append((edim, width))
         shapes += [(width + (edim if li in skips else 0), width)
                    for li in range(1, depth)]
+    dt = plan.compute_dtype
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    ins = [torch.randn((n_rows, k), generator=gen, device=dev,
-                       dtype=torch.bfloat16) for k, _ in shapes]
-    ws = [torch.randn((k, n), generator=gen, device=dev,
-                      dtype=torch.bfloat16) for k, n in shapes]
-    ms = time_ms(lambda: [torch.matmul(a, w) for a, w in zip(ins, ws)],
-                 warm=2, iters=10)
+    ins = [torch.randn((n_rows, k), generator=gen, device=dev, dtype=dt)
+           for k, _ in shapes]
+    ws = [torch.randn((k, n), generator=gen, device=dev, dtype=dt)
+          for k, n in shapes]
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        ms = time_ms(lambda: [torch.matmul(a, w) for a, w in zip(ins, ws)],
+                     warm=2, iters=10)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
     del ins, ws
     return ms
 
@@ -317,8 +325,7 @@ def phase_kernels(net: HumanNeRF, params: dict, n_rays: int) -> dict:
         plain_ms = time_ms(lambda: fused_mlp.query_points_plain(
             plan, sub, x, alpha, cc, live), warm=1, iters=2)
         n_live = int(live.sum()) * fused_mlp.TILE
-        chain_ms = matmul_chain_ms(plan, n_live, dev) \
-            if dt == torch.bfloat16 else None
+        chain_ms = matmul_chain_ms(plan, n_live, dev)
         flops = n_live * plan.flops_per_sample()
         w_bytes = sum(t.numel() * t.element_size()
                       for net_w in kw.values()
@@ -1352,12 +1359,13 @@ def phase_step_accuracy(tmp, params, item):
          columns=["max_rel_l2", "min_cosine"], routes=table)
 
 
-def phase_profile_train(tmp, params, item):
+def phase_profile_train(tmp, params, item, opts=(), name="profile_train"):
     """Where one warm training step's time goes: the step under
-    torch.profiler, device time by kernel and the device's busy share."""
+    torch.profiler, device time by kernel and the device's busy share.
+    opts: config overrides (["dtype", "float32"] for the f32 step)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    trainer = make_trainer(tmp, [], params)
+    trainer = make_trainer(tmp, list(opts), params)
     batch = to_device_batch(item, trainer.device)
     for _ in range(3):
         trainer.train_step(batch)
@@ -1389,14 +1397,14 @@ def phase_profile_train(tmp, params, item):
             and "#" not in e.key]         # record_function markers
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
-    emit("profile_train", step_ms=step_ms, forward_ms=fwd_ms,
+    emit(name, step_ms=step_ms, forward_ms=fwd_ms,
          backward_ms=bwd_ms, optimizer_ms=opt_ms, device_busy_ms=busy_ms,
          device_busy_share=busy_ms / step_ms,
          device_kernel_launches=sum(r[2] for r in rows),
          top=[{"name": k[:60], "ms": round(ms, 3), "calls": c}
               for k, ms, c in rows[:16]])
     if busy_ms <= 0:
-        fail("profile_train: the trace shows no device time")
+        fail(f"{name}: the trace shows no device time")
 
 
 def render_frames(cfg, params, items, device=None):
@@ -1728,6 +1736,9 @@ def main():
             phase_train_resume(tmp + "/resume", params, titem)
         if "profile_train" in phases:
             phase_profile_train(tmp + "/profile", params, titem)
+        if "profile_train_f32" in phases:
+            phase_profile_train(tmp + "/profile_f32", params, titem,
+                                ["dtype", "float32"], "profile_train_f32")
         if "step_accuracy" in phases:
             phase_step_accuracy(tmp + "/accuracy", params, titem)
 

@@ -28,8 +28,18 @@
 // + bf16 rounding from the registers straight into the next layer's
 // swizzled operand, in place; a warpgroup only ever synchronises with
 // itself (named barriers over 128 threads). The narrow output layers and
-// the embeddings stay on CUDA cores. f32 mode keeps the fmaf kernel: 64
-// samples a block, one block a tile half.
+// the embeddings stay on CUDA cores.
+//
+// The f32 kernel (the reference-parity mode) is bound by FMA operations on
+// CUDA cores: 67 TFLOP/s against 989 in bf16. It runs the register-tiled
+// f32 primitive of fused_mlp_common.cuh: one block of 256 threads a tile
+// half (64 samples), a thread 8 samples x width / 32 columns, each layer's
+// weights streamed in 16-row chunks through a three-stage cp.async ring, so
+// the inner loop reads only shared memory. 151 registers, no spill, 137 728
+// B of shared memory: one block an SM. (Two blocks an SM, with 8-row chunks
+// and 128 registers, spilled 24 B and gained 3 %.) A dead half-tile writes its
+// zeros and leaves; a live block runs some 0.15 ms, so a persistent grid
+// with a tile counter would save only the ring's first chunk a block.
 //
 // ptxas -v (sm_90a, CUDA 12.8), bf16 kernel: 168 registers, no spill, 32 B
 // of stack; 222 848 B of dynamic shared memory a block (64 KB activations,
@@ -148,69 +158,63 @@ fused_mlp_bf16_kernel(const __grid_constant__ Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// f32: 64 samples a block, fmaf
+// f32: 64 samples a block, the register-tiled fmaf primitive
 // ---------------------------------------------------------------------------
 
+constexpr size_t K1_F32_SMEM =
+    sizeof(float) * (F_ACT_FLOATS + F_EMB_FLOATS + F_STAGES * F_STAGE_FLOATS
+                     + 2 * TM * 3);
+
 template <typename T>
-__global__ void
-__launch_bounds__(Cfg<T>::THREADS, Cfg<T>::BLOCKS_PER_SM)
+__global__ void __launch_bounds__(F_THREADS, 1)
 fused_mlp_kernel(const __grid_constant__ Params p) {
-  constexpr int THREADS = Cfg<T>::THREADS;
-  constexpr int H_LD = Cfg<T>::H_LD;
-  constexpr int E_LD = Cfg<T>::E_LD;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
+  static_assert(sizeof(T) == 4, "the float32 kernel");
+  extern __shared__ __align__(16) float smem_f32[];
 
   const long long base = (long long)blockIdx.x * TM;
+  long long rows = p.n - base;
+  if (rows > TM) rows = TM;
   if (p.live[base / TILE] == 0) {
     // dead tile: the output buffer is uninitialised, so write the zeros here
-    long long rows = p.n - base;
-    if (rows > TM) rows = TM;
-    for (int idx = threadIdx.x; idx < rows * 4; idx += THREADS)
+    for (int idx = threadIdx.x; idx < rows * 4; idx += F_THREADS)
       p.out[base * 4 + idx] = 0.0f;
     return;
   }
 
-  T* buf_a = reinterpret_cast<T*>(smem_raw);
-  T* buf_b = buf_a + TM * H_LD;
-  T* emb = buf_b + TM * H_LD;
-  float* stage = reinterpret_cast<float*>(emb + TM * E_LD);
-  float* xs = stage + Cfg<T>::STAGE_FLOATS;
+  float* act = smem_f32;
+  float* emb = act + F_ACT_FLOATS;
+  float* ring = emb + F_EMB_FLOATS;
+  float* xs = ring + F_STAGES * F_STAGE_FLOATS;
   float* xyz = xs + TM * 3;
 
   // ragged last block: rows past n read as 0 and are never written
-  for (int idx = threadIdx.x; idx < TM * 3; idx += THREADS) {
-    const long long g = base * 3 + idx;
-    const float v = (g < p.n * 3) ? p.x[g] : 0.0f;
+  for (int idx = threadIdx.x; idx < TM * 3; idx += F_THREADS) {
+    const float v = idx < rows * 3 ? p.x[base * 3 + idx] : 0.0f;
     xs[idx] = v;
     xyz[idx] = v;
   }
   __syncthreads();
 
+  const int r = threadIdx.x & (TM - 1);   // the output layers: a thread a
+  const int o = threadIdx.x / TM;         // (sample, output column)
   if (!p.skip_nr) {
-    embed<T>(xs, p.nr.multires, p.nr.epad, false, p.hann, emb);
+    embed_f32(xs, p.nr.multires, p.nr.epad, false, p.hann, emb);
     __syncthreads();
-    const T* h = hidden_layers<T>(p.nr, emb, buf_a, buf_b, stage);
-    const T* w_out = static_cast<const T*>(p.nr.w_out);
-    for (int idx = threadIdx.x; idx < TM * 3; idx += THREADS) {
-      const int r = idx / 3;
-      const int o = idx - 3 * r;
-      xyz[idx] = xs[idx] + out_dot<T>(h + r * H_LD, w_out, p.nr.width, 3, o,
-                                      p.nr.b_out[o]);
-    }
+    run_net_f32(p.nr, act, emb, ring, nullptr);
+    if (o < 3)
+      xyz[r * 3 + o] = xs[r * 3 + o] +
+          out_f32(act, p.nr.width, 3, static_cast<const float*>(p.nr.w_out),
+                  r, o, p.nr.b_out[o]);
     __syncthreads();
   }
 
-  embed<T>(xyz, p.cnl.multires, p.cnl.epad, true, nullptr, emb);
+  embed_f32(xyz, p.cnl.multires, p.cnl.epad, true, nullptr, emb);
   __syncthreads();
-  const T* h = hidden_layers<T>(p.cnl, emb, buf_a, buf_b, stage);
-  const T* w_out = static_cast<const T*>(p.cnl.w_out);
-  for (int idx = threadIdx.x; idx < TM * 4; idx += THREADS) {
-    const int r = idx >> 2;
-    const int o = idx & 3;
-    if (base + r < p.n)
-      p.out[base * 4 + idx] = out_dot<T>(h + r * H_LD, w_out, p.cnl.width, 4,
-                                         o, p.cnl.b_out[o]);
-  }
+  run_net_f32(p.cnl, act, emb, ring, nullptr);
+  if (r < rows)
+    p.out[(base + r) * 4 + o] =
+        out_f32(act, p.cnl.width, 4, static_cast<const float*>(p.cnl.w_out),
+                r, o, p.cnl.b_out[o]);
 }
 
 // Opt in to the block's dynamic shared memory and ask for the largest
@@ -252,13 +256,12 @@ extern "C" {
 int fused_mlp_blocks_per_sm(int is_bf16) {
   return is_bf16
       ? blocks_per_sm(fused_mlp_bf16_kernel, THREADS_H, K1_SMEM)
-      : blocks_per_sm(fused_mlp_kernel<float>, Cfg<float>::THREADS,
-                      smem_bytes<float>());
+      : blocks_per_sm(fused_mlp_kernel<float>, F_THREADS, K1_F32_SMEM);
 }
 
 // Dynamic shared memory a block of the kernel asks for, in bytes.
 int fused_mlp_smem_bytes(int is_bf16) {
-  return is_bf16 ? (int)K1_SMEM : (int)smem_bytes<float>();
+  return is_bf16 ? (int)K1_SMEM : (int)K1_F32_SMEM;
 }
 
 // Constants the Python wrapper must agree with.
@@ -309,10 +312,10 @@ int fused_mlp_forward(const float* x, float* out, long long n,
   } else {
     const long long blocks = (n + TM - 1) / TM;
     if (blocks > 2147483647LL) return -1;
-    err = prepare(fused_mlp_kernel<float>, smem_bytes<float>());
+    err = prepare(fused_mlp_kernel<float>, K1_F32_SMEM);
     if (err != cudaSuccess) return (int)err;
-    fused_mlp_kernel<float><<<(unsigned)blocks, Cfg<float>::THREADS,
-                              smem_bytes<float>(), s>>>(p);
+    fused_mlp_kernel<float><<<(unsigned)blocks, F_THREADS, K1_F32_SMEM, s>>>(
+        p);
   }
   return (int)cudaGetLastError();
 }

@@ -56,8 +56,16 @@
 // backward's two activation buffers leave no room for more), so a chunk's
 // L2 latency is hidden only behind one chunk of products; and the dW
 // atomics, 0.6 M floats a live tile.
-// f32 mode keeps the fmaf kernel: 64 samples a block, activations in a
-// per-block scratch, dW by scalar atomics.
+// f32 mode runs the register-tiled f32 primitive of fused_mlp_common.cuh on
+// a persistent grid, 64 samples a block (two f32 activation buffers of a
+// 128-sample tile would take 256 KB of shared memory): the recompute writes
+// every layer's output to the block's scratch from its registers;
+// dh = dy W^T and dE += dy W_e^T run on the same staged primitive over the
+// transposed copies w_h_t / w_e_t (cp.async moves rows, so a chunk of W's
+// columns would arrive untransposed and be read four times as often); dW =
+// h^T dy sums the block's 64 samples in registers, 8 rows x width / 32
+// columns a thread, and adds them with one 16-byte vector atomic per four
+// columns.
 //
 // ptxas -v (sm_90a, CUDA 12.8), bf16 kernel: 255 registers, 346 B of spill
 // stores, 288 B of stack; 230 216 B of dynamic shared memory a block (two
@@ -91,7 +99,7 @@ struct BwdParams {
   float* dx;            // (n, 3)
   long long n;
   const int* live;      // (ceil(n / TILE),)
-  int* next_tile;       // bf16: tile counter of the persistent grid, zeroed
+  int* next_tile;       // block counter of the persistent grid, zeroed
   float hann[MAX_FREQ];
   int skip_nr;
   void* scratch;                    // per resident block: all activations
@@ -99,154 +107,6 @@ struct BwdParams {
   BwdNet nr;
   BwdNet cnl;
 };
-
-template <typename T>
-constexpr size_t bwd_smem_bytes() {
-  return sizeof(T) * (2 * TM * Cfg<T>::H_LD + TM * Cfg<T>::E_LD)
-       + sizeof(float) * (Cfg<T>::STAGE_FLOATS + TM * DE_LD + TM * 13);
-}
-
-// Operand rounding of the compute type, result kept in f32.
-template <typename T> __device__ __forceinline__ float rnd(float v) {
-  return to_f32(from_f32<T>(v));
-}
-
-// TM rows of `width` elements between shared memory and the scratch area,
-// as 16-byte words.
-template <typename T>
-__device__ void copy_rows(const T* src, int src_ld, T* dst, int dst_ld,
-                          int width) {
-  constexpr int V = 16 / sizeof(T);
-  const int per_row = width / V;
-  for (int idx = threadIdx.x; idx < TM * per_row; idx += Cfg<T>::THREADS) {
-    const int r = idx / per_row;
-    const int c = (idx - r * per_row) * V;
-    *reinterpret_cast<int4*>(dst + r * dst_ld + c) =
-        *reinterpret_cast<const int4*>(src + r * src_ld + c);
-  }
-}
-
-// One net's hidden layers as in the forward kernel, with every layer's output
-// also copied to `scratch` ((depth, TM, width)). Returns the last h's buffer.
-template <typename T>
-__device__ T* forward_store(const NetDesc& net, const T* emb, T* buf_a,
-                            T* buf_b, float* stage, T* scratch) {
-  constexpr int H_LD = Cfg<T>::H_LD;
-  T* cur = buf_a;
-  T* nxt = buf_b;
-  dense<T>(nullptr, 0, nullptr, emb, net.epad, net.w_e[0], net.b[0],
-           net.width, cur, stage);
-  __syncthreads();
-  copy_rows<T>(cur, H_LD, scratch, net.width, net.width);
-  for (int li = 1; li < net.depth; ++li) {
-    dense<T>(cur, net.width, net.w_h[li], emb, net.epad, net.w_e[li],
-             net.b[li], net.width, nxt, stage);
-    __syncthreads();
-    copy_rows<T>(nxt, H_LD, scratch + (size_t)li * TM * net.width, net.width,
-                 net.width);
-    T* t = cur; cur = nxt; nxt = t;
-  }
-  return cur;
-}
-
-// dW += A^T D over the block's TM samples. A (TM, rows_in) with stride lda is
-// the layer's input (h_prev or the embedding), D (TM, width_out) is dy.
-__device__ void wgrad(const float* A, int lda, int rows_in, const float* D,
-                      int width_out, float* dW, float* /*stage*/) {
-  constexpr int H_LD = Cfg<float>::H_LD;
-  // a thread owns 4 input rows at one output column: one broadcast float4 of
-  // A and one D value a sample (measured faster than one row at 4 columns
-  // with a vector atomic: 101 vs 112 ms a call at the training shape)
-  const int items = (rows_in / 4) * width_out;
-  for (int it = threadIdx.x; it < items; it += Cfg<float>::THREADS) {
-    const int r4 = (it / width_out) * 4;
-    const int c = it % width_out;
-    float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
-    for (int s = 0; s < TM; ++s) {
-      const float d = D[s * H_LD + c];
-      const float4 a = *reinterpret_cast<const float4*>(A + s * lda + r4);
-      a0 = fmaf(a.x, d, a0);
-      a1 = fmaf(a.y, d, a1);
-      a2 = fmaf(a.z, d, a2);
-      a3 = fmaf(a.w, d, a3);
-    }
-    float* o = dW + (size_t)r4 * width_out + c;
-    atomicAdd(o, a0);
-    atomicAdd(o + width_out, a1);
-    atomicAdd(o + 2 * width_out, a2);
-    atomicAdd(o + 3 * width_out, a3);
-  }
-}
-
-// db += column sums of D.
-template <typename T>
-__device__ void bgrad(const T* D, int width, float* db) {
-  for (int c = threadIdx.x; c < width; c += Cfg<T>::THREADS) {
-    float acc = 0.0f;
-    for (int s = 0; s < TM; ++s) acc += to_f32(D[s * Cfg<T>::H_LD + c]);
-    atomicAdd(db + c, acc);
-  }
-}
-
-// dE += D W_e^T: the embedding's share of a layer's input gradient, kept in
-// f32 in shared memory. w_t is W_e stored (out, epad).
-__device__ void egrad(const float* D, int width, const void* w_t_, int epad,
-                      float* dE) {
-  constexpr int H_LD = Cfg<float>::H_LD;
-  const float* __restrict__ w_t = static_cast<const float*>(w_t_);
-  for (int idx = threadIdx.x; idx < TM * epad; idx += Cfg<float>::THREADS) {
-    const int s = idx / epad;
-    const int e = idx - s * epad;
-    float acc = dE[s * DE_LD + e];
-    for (int o = 0; o < width; ++o)
-      acc = fmaf(D[s * H_LD + o], w_t[(size_t)o * epad + e], acc);
-    dE[s * DE_LD + e] = acc;
-  }
-}
-
-// H <- (D W^T) * (H > 0), in place: the next dy from this layer's dy. w_t is
-// the layer's w_h stored (out, in); all widths are equal.
-template <int CPT>
-__device__ void dgrad_fma(const float* D, int width,
-                          const float* __restrict__ w_t, float* H) {
-  constexpr int H_LD = Cfg<float>::H_LD;
-  const int r0 = (threadIdx.x >> 5) * 8;
-  const int c0 = (threadIdx.x & 31) * CPT;
-  float acc[8][CPT];
-#pragma unroll
-  for (int r = 0; r < 8; ++r)
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) acc[r][j] = 0.0f;
-  for (int k = 0; k < width; ++k) {
-    float wv[CPT];
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) wv[j] = w_t[(size_t)k * width + c0 + j];
-#pragma unroll
-    for (int r = 0; r < 8; ++r) {
-      const float dv = D[(r0 + r) * H_LD + k];
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) acc[r][j] = fmaf(dv, wv[j], acc[r][j]);
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < 8; ++r)
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) {
-      float* h = H + (r0 + r) * H_LD + c0 + j;
-      *h = *h > 0.0f ? acc[r][j] : 0.0f;
-    }
-}
-
-__device__ void dgrad(const float* D, int width, const void* w_t, float* H,
-                      float* /*stage*/) {
-  const float* w = static_cast<const float*>(w_t);
-  switch (width / 64) {
-    case 1: dgrad_fma<2>(D, width, w, H); break;
-    case 2: dgrad_fma<4>(D, width, w, H); break;
-    case 3: dgrad_fma<6>(D, width, w, H); break;
-    default: dgrad_fma<8>(D, width, w, H); break;
-  }
-}
 
 // ---------------------------------------------------------------------------
 // bf16: the Hopper kernel
@@ -892,188 +752,372 @@ fused_mlp_bwd_bf16_kernel(const __grid_constant__ BwdParams p) {
 }
 
 // ---------------------------------------------------------------------------
-// f32: 64 samples a block, fmaf
+// f32: 64 samples a block, the register-tiled fmaf primitive
 // ---------------------------------------------------------------------------
 
-// ---------------------------------------------------------------------------
-// One net, backwards. gsrc (TM, n_out) f32 in shared memory is the cotangent
-// of the net's output; emb holds the net's input embedding; scratch holds
-// the net's activations. On return dE (TM, epad) holds the gradient with
-// respect to the embedding. buf_a / buf_b are free to use.
-// ---------------------------------------------------------------------------
-template <typename T>
-__device__ void backward_net(const BwdNet& bn, const T* emb, T* buf_a,
-                             T* buf_b, float* dE, float* stage,
-                             const T* scratch, const float* gsrc) {
-  constexpr int THREADS = Cfg<T>::THREADS;
-  constexpr int H_LD = Cfg<T>::H_LD;
-  constexpr int E_LD = Cfg<T>::E_LD;
+constexpr size_t K2_F32_SMEM =
+    sizeof(float) * (2 * F_ACT_FLOATS + 2 * F_EMB_FLOATS
+                     + F_STAGES * F_STAGE_FLOATS + TM * 13);
+
+// dW (M, N) += A^T D over the block's TM samples: A (M rows) and D (N rows)
+// feature-major in shared memory, dW row-major in device memory. Rows go in
+// passes of 64, a thread's 8 rows 8 apart; its columns are those of
+// gemm_f32 and leave as one vector atomic per VEC of them.
+template <int CS>
+__device__ __forceinline__ void wgrad_load(float4 (&av)[8], float4 (&dv)[CS],
+                                           const float* a, int rows,
+                                           const float* d, int ncg, int s) {
+  constexpr int VEC = FCols<CS>::VEC;
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+    av[r] = 8 * r < rows
+        ? *reinterpret_cast<const float4*>(a + 8 * r * F_LD + s)
+        : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+  for (int q = 0; q < FCols<CS>::Q; ++q)
+#pragma unroll
+    for (int v = 0; v < VEC; ++v)
+      dv[q * VEC + v] = *reinterpret_cast<const float4*>(
+          d + (q * VEC * ncg + v) * F_LD + s);
+}
+
+template <int CS>
+__device__ __forceinline__ void wgrad_fma(float (&acc)[8][CS],
+                                          const float4 (&av)[8],
+                                          const float4 (&dv)[CS]) {
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int c = 0; c < CS; ++c) {
+      acc[r][c] = fmaf(av[r].x, dv[c].x, acc[r][c]);
+      acc[r][c] = fmaf(av[r].y, dv[c].y, acc[r][c]);
+      acc[r][c] = fmaf(av[r].z, dv[c].z, acc[r][c]);
+      acc[r][c] = fmaf(av[r].w, dv[c].w, acc[r][c]);
+    }
+}
+
+// dW (M, N) += A^T D over the block's TM samples: A (M rows) and D (N rows)
+// feature-major in shared memory, dW row-major in device memory. Rows go in
+// passes of 64, a thread's 8 rows 8 apart; its columns are those of
+// gemm_f32 and leave as one vector atomic per VEC of them. Four samples a
+// step as one float4 a row, the next step's loads issued before this
+// step's products.
+template <int CS>
+__device__ void wgrad_f32(const float* A, int M, const float* D, int N,
+                          float* dW) {
+  constexpr int VEC = FCols<CS>::VEC;
+  const int ncg = N / CS;
+  const int sg = f_sg(), cg = f_cg();
+  if (cg >= ncg) return;
+  const float* d = D + VEC * cg * F_LD;
+  for (int m0 = 0; m0 < M; m0 += 64) {
+    float acc[8][CS];
+    zero(acc);
+    const float* a = A + (m0 + sg) * F_LD;
+    const int rows = M - m0 - sg;      // this thread's row r is valid if 8 r < rows
+    float4 a0[8], d0[CS], a1[8], d1[CS];
+    wgrad_load<CS>(a0, d0, a, rows, d, ncg, 0);
+#pragma unroll 1
+    for (int s = 0; s < TM; s += 8) {
+      wgrad_load<CS>(a1, d1, a, rows, d, ncg, s + 4);
+      wgrad_fma<CS>(acc, a0, d0);
+      if (s + 8 < TM) wgrad_load<CS>(a0, d0, a, rows, d, ncg, s + 8);
+      wgrad_fma<CS>(acc, a1, d1);
+    }
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const int i = m0 + sg + 8 * r;
+      if (i >= M) continue;
+#pragma unroll
+      for (int q = 0; q < FCols<CS>::Q; ++q) {
+        float* o = dW + (size_t)i * N + q * VEC * ncg + VEC * cg;
+        if constexpr (VEC == 4)
+          atomicAdd(reinterpret_cast<float4*>(o),
+                    make_float4(acc[r][4 * q], acc[r][4 * q + 1],
+                                acc[r][4 * q + 2], acc[r][4 * q + 3]));
+        else
+          atomicAdd(reinterpret_cast<float2*>(o),
+                    make_float2(acc[r][2 * q], acc[r][2 * q + 1]));
+      }
+    }
+  }
+}
+
+// db += the sample sums of D (N rows, feature-major): a thread a column.
+__device__ void bgrad_f32(const float* D, int N, float* db) {
+  for (int c = threadIdx.x; c < N; c += F_THREADS) {
+    const float* row = D + c * F_LD;
+    float acc = 0.0f;
+    for (int s = 0; s < TM; s += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(row + s);
+      acc += (v.x + v.y) + (v.z + v.w);
+    }
+    atomicAdd(db + c, acc);
+  }
+}
+
+// One net, backwards, at CS = width / 32. gsrc (TM, n_out) in shared memory
+// is the cotangent of the net's output; emb holds the net's embedding;
+// scratch holds its layers' outputs ((depth, width, TM)), the last of them
+// already in H when h_last_in_h. On return dE (epad rows, feature-major)
+// holds the gradient with respect to the embedding. H, D and the ring are
+// overwritten.
+template <int CS>
+__device__ void backward_layers_f32(const BwdNet& bn, float* H, float* D,
+                                    const float* emb, float* dE, float* ring,
+                                    const float* scratch, const float* gsrc,
+                                    bool h_last_in_h) {
   const NetDesc& net = bn.net;
   const int width = net.width;
+  const int epad = net.epad;
   const int n_out = net.n_out;
-  T* H = buf_a;     // h of the layer below the one being differentiated
-  T* D = buf_b;     // dy of the layer being differentiated
-
-  copy_rows<T>(scratch + (size_t)(net.depth - 1) * TM * width, width, H, H_LD,
-               width);
-  for (int idx = threadIdx.x; idx < TM * DE_LD; idx += THREADS) dE[idx] = 0.0f;
+  const int sg = f_sg(), cg = f_cg();
+  // layer li's output from the scratch into H, as cp.async copies that
+  // land by the next cp_async_wait<0>
+  auto load_h = [&](int li) {
+    const float* src = scratch + (size_t)li * width * TM;
+    for (int idx = threadIdx.x; idx < width * (TM / 4); idx += F_THREADS) {
+      const int c = idx / (TM / 4);
+      const int s = (idx - c * (TM / 4)) * 4;
+      cp_async16(H + c * F_LD + s, src + c * TM + s);
+    }
+    cp_async_commit();
+  };
+  if (!h_last_in_h) load_h(net.depth - 1);
+  for (int idx = threadIdx.x; idx < epad * F_LD; idx += F_THREADS)
+    dE[idx] = 0.0f;
+  cp_async_wait<0>();
   __syncthreads();
 
-  // output layer: dW_out = h^T g, db_out = sum g, dy = (g W_out^T) * (h > 0)
-  const T* w_out = static_cast<const T*>(net.w_out);
-  for (int idx = threadIdx.x; idx < width * n_out; idx += THREADS) {
-    const int k = idx / n_out;
-    const int o = idx - k * n_out;
-    float acc = 0.0f;
+  // output layer: dW_out = h^T g, db_out = sum g, dy = (g W_out^T) * (h > 0).
+  // dW_out (width, n_out) is taken as a flat array, four neighbours a thread
+  // and one vector atomic (width * n_out is a multiple of 4)
+  const float* w_out = static_cast<const float*>(net.w_out);
+  for (int f0 = 4 * threadIdx.x; f0 < width * n_out; f0 += 4 * F_THREADS) {
+    float acc[4];
+    int k[4], o[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      acc[i] = 0.0f;
+      k[i] = (f0 + i) / n_out;
+      o[i] = f0 + i - k[i] * n_out;
+    }
     for (int s = 0; s < TM; ++s)
-      acc = fmaf(to_f32(H[s * H_LD + k]), rnd<T>(gsrc[s * n_out + o]), acc);
-    atomicAdd(bn.dw_out + idx, acc);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        acc[i] = fmaf(H[k[i] * F_LD + s], gsrc[s * n_out + o[i]], acc[i]);
+    atomicAdd(reinterpret_cast<float4*>(bn.dw_out + f0),
+              make_float4(acc[0], acc[1], acc[2], acc[3]));
   }
   if (threadIdx.x < n_out) {
     float acc = 0.0f;
     for (int s = 0; s < TM; ++s) acc += gsrc[s * n_out + threadIdx.x];
     atomicAdd(bn.db_out + threadIdx.x, acc);
   }
-  for (int idx = threadIdx.x; idx < TM * width; idx += THREADS) {
-    const int s = idx / width;
-    const int k = idx - s * width;
+  for (int idx = threadIdx.x; idx < TM * width; idx += F_THREADS) {
+    const int k = idx / TM;
+    const int s = idx - k * TM;
     float acc = 0.0f;
     for (int o = 0; o < n_out; ++o)
-      acc = fmaf(rnd<T>(gsrc[s * n_out + o]), to_f32(w_out[k * n_out + o]),
-                 acc);
-    D[s * H_LD + k] =
-        from_f32<T>(to_f32(H[s * H_LD + k]) > 0.0f ? acc : 0.0f);
+      acc = fmaf(gsrc[s * n_out + o], __ldg(w_out + k * n_out + o), acc);
+    D[k * F_LD + s] = H[k * F_LD + s] > 0.0f ? acc : 0.0f;
   }
   __syncthreads();
-
-  for (int li = net.depth - 1; li >= 1; --li) {
-    copy_rows<T>(scratch + (size_t)(li - 1) * TM * width, width, H, H_LD,
-                 width);
+  if (net.depth >= 2) {
+    load_h(net.depth - 2);
+    cp_async_wait<0>();
     __syncthreads();
-    wgrad(H, H_LD, width, D, width, bn.dw_h[li], stage);
-    bgrad<T>(D, width, bn.db[li]);
-    if (net.w_e[li] != nullptr) {
-      wgrad(emb, E_LD, net.epad, D, width, bn.dw_e[li], stage);
-      egrad(D, width, bn.w_e_t[li], net.epad, dE);
-    }
-    __syncthreads();
-    dgrad(D, width, bn.w_h_t[li], H, stage);
-    __syncthreads();
-    T* t = H; H = D; D = t;
   }
-  // first layer: its only input is the embedding
-  wgrad(emb, E_LD, net.epad, D, width, bn.dw_e[0], stage);
-  bgrad<T>(D, width, bn.db[0]);
-  egrad(D, width, bn.w_e_t[0], net.epad, dE);
+
+  // D holds this layer's dy, H its input h (for li > 0)
+  constexpr int VEC = FCols<CS>::VEC;
+  for (int li = net.depth - 1; li >= 0; --li) {
+    // the relu mask of the next dy, where this thread will write it
+    unsigned long long mask = 0;
+    if (li > 0) {
+      wgrad_f32<CS>(H, width, D, width, bn.dw_h[li]);
+#pragma unroll
+      for (int q = 0; q < FCols<CS>::Q; ++q)
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) {
+          const float* h = H + (q * VEC * 32 + VEC * cg + v) * F_LD + 8 * sg;
+          const float4 h0 = *reinterpret_cast<const float4*>(h);
+          const float4 h1 = *reinterpret_cast<const float4*>(h + 4);
+          const float hv[8] = {h0.x, h0.y, h0.z, h0.w, h1.x, h1.y, h1.z, h1.w};
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            if (hv[j] > 0.0f) mask |= 1ull << ((q * VEC + v) * 8 + j);
+        }
+    }
+    bgrad_f32(D, width, bn.db[li]);
+    if (net.w_e[li] != nullptr) {
+      wgrad_f32<CS>(emb, epad, D, width, bn.dw_e[li]);
+      // dE += dy W_e^T
+      float ae[8][2];
+      zero(ae);
+      gemm_f32<2>(ae, D, static_cast<const float*>(bn.w_e_t[li]), epad,
+                  width, ring);
+      if (cg < epad / 2)
+#pragma unroll
+        for (int v = 0; v < 2; ++v)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            dE[(2 * cg + v) * F_LD + 8 * sg + j] += ae[j][v];
+    } else {
+      __syncthreads();
+    }
+    if (li == 0) break;
+    // H is free: the next layer's input streams in behind dh = dy W_h^T
+    if (li >= 2) load_h(li - 2);
+    float ah[8][CS];
+    zero(ah);
+    gemm_f32<CS>(ah, D, static_cast<const float*>(bn.w_h_t[li]), width,
+                 width, ring);
+    // the next dy = dh * (h > 0), written over dy
+#pragma unroll
+    for (int q = 0; q < FCols<CS>::Q; ++q)
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) {
+        const int c = q * VEC * 32 + VEC * cg + v;
+        float dy[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          dy[j] = (mask >> ((q * VEC + v) * 8 + j)) & 1 ? ah[j][q * VEC + v]
+                                                        : 0.0f;
+        float* d = D + c * F_LD + 8 * sg;
+        *reinterpret_cast<float4*>(d) = make_float4(dy[0], dy[1], dy[2], dy[3]);
+        *reinterpret_cast<float4*>(d + 4) =
+            make_float4(dy[4], dy[5], dy[6], dy[7]);
+      }
+    cp_async_wait<0>();
+    __syncthreads();
+  }
   __syncthreads();
 }
 
-// dpts (TM, 3) = [dpts +] J^T dE for the fourier embedding of pts: column
-// lead + 6f + d is w_f sin(2^f p_d), column lead + 6f + 3 + d its cosine.
-__device__ void embed_jacobian(const float* pts, const float* dE,
-                               int multires, bool lead3, const float* hann,
-                               const float* add, float* dpts, int threads) {
+__device__ void backward_net_f32(const BwdNet& bn, float* H, float* D,
+                                 const float* emb, float* dE, float* ring,
+                                 const float* scratch, const float* gsrc,
+                                 bool h_last_in_h) {
+  switch (bn.net.width / 64) {
+    case 1: backward_layers_f32<2>(bn, H, D, emb, dE, ring, scratch, gsrc, h_last_in_h); break;
+    case 2: backward_layers_f32<4>(bn, H, D, emb, dE, ring, scratch, gsrc, h_last_in_h); break;
+    case 3: backward_layers_f32<6>(bn, H, D, emb, dE, ring, scratch, gsrc, h_last_in_h); break;
+    default: backward_layers_f32<8>(bn, H, D, emb, dE, ring, scratch, gsrc, h_last_in_h); break;
+  }
+}
+
+// dpts (TM, 3) = [add +] J^T dE for the fourier embedding of pts, dE
+// feature-major: row lead + 6f + d is w_f sin(2^f p_d), row lead + 6f + 3 + d
+// its cosine.
+__device__ void embed_jacobian_f32(const float* pts, const float* dE,
+                                   int multires, bool lead3,
+                                   const float* hann, const float* add,
+                                   float* dpts) {
   const int lead = lead3 ? 3 : 0;
-  for (int idx = threadIdx.x; idx < TM * 3; idx += threads) {
+  for (int idx = threadIdx.x; idx < TM * 3; idx += F_THREADS) {
     const int r = idx / 3;
     const int d = idx - 3 * r;
-    const float* row = dE + r * DE_LD;
     float acc = add != nullptr ? add[idx] : 0.0f;
-    if (lead3) acc += row[d];
+    if (lead3) acc += dE[d * F_LD + r];
     for (int f = 0; f < multires; ++f) {
       const float scale = (float)(1 << f);
       const float s = pts[idx] * scale;
       const float w = hann != nullptr ? scale * hann[f] : scale;
-      acc += w * (row[lead + 6 * f + d] * cosf(s)
-                  - row[lead + 6 * f + 3 + d] * sinf(s));
+      acc += w * (dE[(lead + 6 * f + d) * F_LD + r] * cosf(s)
+                  - dE[(lead + 6 * f + 3 + d) * F_LD + r] * sinf(s));
     }
     dpts[idx] = acc;
   }
 }
 
 template <typename T>
-__global__ void
-__launch_bounds__(Cfg<T>::THREADS, Cfg<T>::BLOCKS_PER_SM)
+__global__ void __launch_bounds__(F_THREADS, 1)
 fused_mlp_bwd_kernel(const __grid_constant__ BwdParams p) {
-  constexpr int THREADS = Cfg<T>::THREADS;
-  constexpr int H_LD = Cfg<T>::H_LD;
-  constexpr int E_LD = Cfg<T>::E_LD;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
+  static_assert(sizeof(T) == 4, "the float32 kernel");
+  extern __shared__ __align__(16) float smem_f32[];
 
-  T* buf_a = reinterpret_cast<T*>(smem_raw);
-  T* buf_b = buf_a + TM * H_LD;
-  T* emb = buf_b + TM * H_LD;
-  float* stage = reinterpret_cast<float*>(emb + TM * E_LD);
-  float* dE = stage + Cfg<T>::STAGE_FLOATS;
-  float* xs = dE + TM * DE_LD;
+  float* H = smem_f32;
+  float* D = H + F_ACT_FLOATS;
+  float* emb = D + F_ACT_FLOATS;
+  float* dE = emb + F_EMB_FLOATS;
+  float* ring = dE + F_EMB_FLOATS;
+  float* xs = ring + F_STAGES * F_STAGE_FLOATS;
   float* xyz = xs + TM * 3;
   float* gs = xyz + TM * 3;        // (TM, 4)
   float* dxyz = gs + TM * 4;       // (TM, 3)
 
-  T* scratch = static_cast<T*>(p.scratch) + (size_t)blockIdx.x * p.scratch_elems;
-  T* scratch_cnl = scratch;
-  T* scratch_nr = scratch + (size_t)p.cnl.net.depth * TM * p.cnl.net.width;
+  float* scratch = static_cast<float*>(p.scratch)
+                 + (size_t)blockIdx.x * p.scratch_elems;
+  float* scratch_cnl = scratch;
+  float* scratch_nr = scratch + (size_t)p.cnl.net.depth * TM * p.cnl.net.width;
+  const int r = threadIdx.x & (TM - 1);   // the non-rigid output layer: a
+  const int o = threadIdx.x / TM;         // thread a (sample, column)
 
+  // the persistent grid takes 64-sample blocks from the counter: live ones
+  // cost far more than dead ones, and a fixed stride would leave the SMs
+  // with the most live blocks running long after the others
+  __shared__ long long next_blk;
   const long long n_blocks = (p.n + TM - 1) / TM;
-  for (long long blk = blockIdx.x; blk < n_blocks; blk += gridDim.x) {
+  for (;;) {
+    if (threadIdx.x == 0) next_blk = atomicAdd(p.next_tile, 1);
+    __syncthreads();
+    const long long blk = next_blk;
+    __syncthreads();
+    if (blk >= n_blocks) break;
     const long long base = blk * TM;
     long long rows = p.n - base;
     if (rows > TM) rows = TM;
     if (p.live[base / TILE] == 0) {
-      for (int idx = threadIdx.x; idx < rows * 3; idx += THREADS)
+      for (int idx = threadIdx.x; idx < rows * 3; idx += F_THREADS)
         p.dx[base * 3 + idx] = 0.0f;
       continue;
     }
     // ragged last block: rows past n read x = 0 and g = 0, add nothing to
     // any dW and are never written
-    for (int idx = threadIdx.x; idx < TM * 3; idx += THREADS) {
+    for (int idx = threadIdx.x; idx < TM * 3; idx += F_THREADS) {
       const float v = (idx < rows * 3) ? p.x[base * 3 + idx] : 0.0f;
       xs[idx] = v;
       xyz[idx] = v;
     }
-    for (int idx = threadIdx.x; idx < TM * 4; idx += THREADS)
+    for (int idx = threadIdx.x; idx < TM * 4; idx += F_THREADS)
       gs[idx] = (idx < rows * 4) ? p.g[base * 4 + idx] : 0.0f;
     __syncthreads();
 
     // ---- forward, keeping the activations
     if (!p.skip_nr) {
-      embed<T>(xs, p.nr.net.multires, p.nr.net.epad, false, p.hann, emb);
+      embed_f32(xs, p.nr.net.multires, p.nr.net.epad, false, p.hann, emb);
       __syncthreads();
-      const T* h = forward_store<T>(p.nr.net, emb, buf_a, buf_b, stage,
-                                    scratch_nr);
-      const T* w_out = static_cast<const T*>(p.nr.net.w_out);
-      for (int idx = threadIdx.x; idx < TM * 3; idx += THREADS) {
-        const int r = idx / 3;
-        const int o = idx - 3 * r;
-        xyz[idx] = xs[idx] + out_dot<T>(h + r * H_LD, w_out, p.nr.net.width,
-                                        3, o, p.nr.net.b_out[o]);
-      }
+      run_net_f32(p.nr.net, H, emb, ring, scratch_nr);
+      if (o < 3)
+        xyz[r * 3 + o] = xs[r * 3 + o] +
+            out_f32(H, p.nr.net.width, 3,
+                    static_cast<const float*>(p.nr.net.w_out), r, o,
+                    p.nr.net.b_out[o]);
       __syncthreads();
     }
-    embed<T>(xyz, p.cnl.net.multires, p.cnl.net.epad, true, nullptr, emb);
+    embed_f32(xyz, p.cnl.net.multires, p.cnl.net.epad, true, nullptr, emb);
     __syncthreads();
-    forward_store<T>(p.cnl.net, emb, buf_a, buf_b, stage, scratch_cnl);
-    __syncthreads();
+    run_net_f32(p.cnl.net, H, emb, ring, scratch_cnl);
 
     // ---- backward: canonical net, then its embedding's Jacobian
-    backward_net<T>(p.cnl, emb, buf_a, buf_b, dE, stage, scratch_cnl, gs);
-    embed_jacobian(xyz, dE, p.cnl.net.multires, true, nullptr, nullptr, dxyz,
-                   THREADS);
+    backward_net_f32(p.cnl, H, D, emb, dE, ring, scratch_cnl, gs, true);
+    embed_jacobian_f32(xyz, dE, p.cnl.net.multires, true, nullptr, nullptr,
+                       dxyz);
     __syncthreads();
 
     const float* dx_src = dxyz;
     if (!p.skip_nr) {
       // xyz = x + offset: dxyz is the cotangent of the non-rigid output and
       // of x through the identity path
-      embed<T>(xs, p.nr.net.multires, p.nr.net.epad, false, p.hann, emb);
+      embed_f32(xs, p.nr.net.multires, p.nr.net.epad, false, p.hann, emb);
       __syncthreads();
-      backward_net<T>(p.nr, emb, buf_a, buf_b, dE, stage, scratch_nr, dxyz);
-      embed_jacobian(xs, dE, p.nr.net.multires, false, p.hann, dxyz, gs,
-                     THREADS);
+      backward_net_f32(p.nr, H, D, emb, dE, ring, scratch_nr, dxyz, false);
+      embed_jacobian_f32(xs, dE, p.nr.net.multires, false, p.hann, dxyz, gs);
       __syncthreads();
       dx_src = gs;
     }
-    for (int idx = threadIdx.x; idx < rows * 3; idx += THREADS)
+    for (int idx = threadIdx.x; idx < rows * 3; idx += F_THREADS)
       p.dx[base * 3 + idx] = dx_src[idx];
     __syncthreads();
   }
@@ -1131,14 +1175,13 @@ extern "C" {
 int fused_mlp_bwd_grid(int is_bf16) {
   return is_bf16 ? resident_blocks(fused_mlp_bwd_bf16_kernel, CONSUMERS,
                                    K2_SMEM)
-                 : resident_blocks(fused_mlp_bwd_kernel<float>,
-                                   Cfg<float>::THREADS,
-                                   bwd_smem_bytes<float>());
+                 : resident_blocks(fused_mlp_bwd_kernel<float>, F_THREADS,
+                                   K2_F32_SMEM);
 }
 
 // Dynamic shared memory a block of the backward kernel asks for, in bytes.
 int fused_mlp_bwd_smem_bytes(int is_bf16) {
-  return is_bf16 ? (int)K2_SMEM : (int)bwd_smem_bytes<float>();
+  return is_bf16 ? (int)K2_SMEM : (int)K2_F32_SMEM;
 }
 
 // Samples a block works on at a time.
@@ -1158,7 +1201,8 @@ long long fused_mlp_bwd_scratch_elems(int is_bf16, int skip_nr,
 }
 
 // dx and the dW / db buffers named in the tables; the latter are added to and
-// must come in zeroed. next_tile: one zeroed int on the device (bf16 only).
+// must come in zeroed. next_tile: one zeroed int on the device (the
+// persistent grid's block counter).
 // Returns a cudaError_t (0 on success), -1 for a plan the kernel does not
 // take.
 int fused_mlp_backward(const float* x, const float* g, float* dx, long long n,
@@ -1198,16 +1242,15 @@ int fused_mlp_backward(const float* x, const float* g, float* dx, long long n,
   if (grid > blocks) grid = (int)blocks;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
+  if (next_tile == nullptr) return -1;
   if (is_bf16) {
-    if (next_tile == nullptr) return -1;
     err = prepare(fused_mlp_bwd_bf16_kernel, K2_SMEM);
     if (err != cudaSuccess) return (int)err;
     fused_mlp_bwd_bf16_kernel<<<grid, CONSUMERS, K2_SMEM, s>>>(p);
   } else {
-    err = prepare(fused_mlp_bwd_kernel<float>, bwd_smem_bytes<float>());
+    err = prepare(fused_mlp_bwd_kernel<float>, K2_F32_SMEM);
     if (err != cudaSuccess) return (int)err;
-    fused_mlp_bwd_kernel<float><<<grid, Cfg<float>::THREADS,
-                                  bwd_smem_bytes<float>(), s>>>(p);
+    fused_mlp_bwd_kernel<float><<<grid, F_THREADS, K2_F32_SMEM, s>>>(p);
   }
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,8 @@
 // Device code shared by the fused-MLP forward kernel (fused_mlp.cu) and its
-// backward kernel (fused_mlp_bwd.cu): the net descriptor, the float32
-// building blocks (fmaf hidden layers on 64-sample blocks), and the Hopper
-// layer primitive of the bfloat16 kernels:
+// backward kernel (fused_mlp_bwd.cu): the net descriptor, the Hopper layer
+// primitive of the bfloat16 kernels, and the register-tiled float32 layer
+// primitive (its own section below: fmaf on 64-sample blocks, weights
+// staged in shared memory by cp.async). The bfloat16 primitive:
 //
 //   * a block works on one 128-sample liveness tile at a time and walks
 //     over the tiles (a persistent grid, one block an SM; the tiles are
@@ -38,7 +39,7 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 constexpr int TILE = 128;       // liveness granularity, in samples
-constexpr int TM = 64;          // samples per float32 block: half a tile
+constexpr int TM = 64;          // samples a float32 block: half a tile
 constexpr int MAX_DEPTH = 12;
 constexpr int MAX_WIDTH = 256;
 constexpr int MAX_EPAD = 64;
@@ -72,23 +73,6 @@ struct Params {
   NetDesc cnl;
 };
 
-// float32 blocks: threads a block, blocks meant to share an SM, and
-// shared-memory row strides.
-template <typename T> struct Cfg;
-template <> struct Cfg<float> {
-  static constexpr int THREADS = 256;   // 8 warps x 8 rows
-  static constexpr int BLOCKS_PER_SM = 1;
-  static constexpr int H_LD = MAX_WIDTH + 4;
-  static constexpr int E_LD = MAX_EPAD + 4;
-  static constexpr int STAGE_FLOATS = 0;
-};
-
-template <typename T>
-constexpr size_t smem_bytes() {
-  return sizeof(T) * (2 * TM * Cfg<T>::H_LD + TM * Cfg<T>::E_LD)
-       + sizeof(float) * (Cfg<T>::STAGE_FLOATS + 2 * TM * 3);
-}
-
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
 template <typename T> __device__ __forceinline__ T from_f32(float v);
@@ -96,126 +80,6 @@ template <> __device__ __forceinline__ float from_f32<float>(float v) { return v
 template <> __device__ __forceinline__ bf16 from_f32<bf16>(float v) {
   return __float2bfloat16(v);   // round to nearest even
 }
-
-// ---------------------------------------------------------------------------
-// Hidden layer, f32: plain fmaf loops. 8 warps x 8 rows; a lane owns CPT =
-// width / 32 neighbouring columns, so a warp reads weight rows coalesced and
-// activations as shared-memory broadcasts.
-// ---------------------------------------------------------------------------
-template <int CPT>
-__device__ void dense_fma(const float* a_h, int k_h, const float* w_h,
-                          const float* a_e, int k_e, const float* w_e,
-                          const float* __restrict__ bias, int width,
-                          float* dst) {
-  constexpr int H_LD = Cfg<float>::H_LD;
-  constexpr int E_LD = Cfg<float>::E_LD;
-  const int r0 = (threadIdx.x >> 5) * 8;
-  const int c0 = (threadIdx.x & 31) * CPT;
-  float acc[8][CPT];
-#pragma unroll
-  for (int r = 0; r < 8; ++r)
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) acc[r][j] = 0.0f;
-
-  auto run = [&](const float* a, int lda, int K, const float* __restrict__ w) {
-    for (int k = 0; k < K; ++k) {
-      float wv[CPT];
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) wv[j] = w[(size_t)k * width + c0 + j];
-#pragma unroll
-      for (int r = 0; r < 8; ++r) {
-        const float av = a[(r0 + r) * lda + k];
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) acc[r][j] = fmaf(av, wv[j], acc[r][j]);
-      }
-    }
-  };
-  if (w_h != nullptr) run(a_h, H_LD, k_h, w_h);
-  if (w_e != nullptr) run(a_e, E_LD, k_e, w_e);
-
-#pragma unroll
-  for (int r = 0; r < 8; ++r)
-#pragma unroll
-    for (int j = 0; j < CPT; ++j)
-      dst[(r0 + r) * H_LD + c0 + j] = fmaxf(acc[r][j] + bias[c0 + j], 0.0f);
-}
-
-template <typename T>
-__device__ void dense(const T* a_h, int k_h, const void* w_h,
-                      const T* a_e, int k_e, const void* w_e,
-                      const float* bias, int width, T* dst, float* stage);
-
-template <>
-__device__ void dense<float>(const float* a_h, int k_h, const void* w_h,
-                             const float* a_e, int k_e, const void* w_e,
-                             const float* bias, int width, float* dst,
-                             float* /*stage*/) {
-  const float* wh = static_cast<const float*>(w_h);
-  const float* we = static_cast<const float*>(w_e);
-  switch (width / 64) {
-    case 1: dense_fma<2>(a_h, k_h, wh, a_e, k_e, we, bias, width, dst); break;
-    case 2: dense_fma<4>(a_h, k_h, wh, a_e, k_e, we, bias, width, dst); break;
-    case 3: dense_fma<6>(a_h, k_h, wh, a_e, k_e, we, bias, width, dst); break;
-    default: dense_fma<8>(a_h, k_h, wh, a_e, k_e, we, bias, width, dst); break;
-  }
-}
-
-// Fourier embedding of pts (TM, 3) into emb (TM, E_LD), columns >= used are 0.
-// lead3: the canonical embed starts with the point itself; hann: per-frequency
-// window weight (non-rigid embed) or null.
-template <typename T>
-__device__ void embed(const float* pts, int multires, int epad, bool lead3,
-                      const float* hann, T* emb) {
-  constexpr int E_LD = Cfg<T>::E_LD;
-  const int lead = lead3 ? 3 : 0;
-  for (int idx = threadIdx.x; idx < TM * epad; idx += Cfg<T>::THREADS) {
-    const int r = idx / epad;
-    const int c = idx - r * epad;
-    float v = 0.0f;
-    if (c < lead) {
-      v = pts[r * 3 + c];
-    } else if (c < lead + 6 * multires) {
-      const int j = c - lead;
-      const int f = j / 6;
-      const int q = j - 6 * f;
-      const int d = q >= 3 ? q - 3 : q;
-      const float s = pts[r * 3 + d] * (float)(1 << f);
-      v = q >= 3 ? cosf(s) : sinf(s);
-      if (hann != nullptr) v *= hann[f];
-    }
-    emb[r * E_LD + c] = from_f32<T>(v);
-  }
-}
-
-// Narrow output layer (3 or 4 columns) as scalar dot products:
-// res = h @ w_out + b_out, operands as stored (bf16 or f32), f32 accumulate.
-template <typename T>
-__device__ __forceinline__ float out_dot(const T* h_row, const T* w, int K,
-                                         int n_out, int o, float b) {
-  float acc = 0.0f;
-  for (int k = 0; k < K; ++k)
-    acc = fmaf(to_f32(h_row[k]), to_f32(w[k * n_out + o]), acc);
-  return acc + b;
-}
-
-// Runs one net's hidden layers; returns the buffer that holds the last h.
-template <typename T>
-__device__ T* hidden_layers(const NetDesc& net, const T* emb, T* buf_a,
-                            T* buf_b, float* stage) {
-  T* cur = buf_a;
-  T* nxt = buf_b;
-  dense<T>(nullptr, 0, nullptr, emb, net.epad, net.w_e[0], net.b[0],
-           net.width, cur, stage);
-  __syncthreads();
-  for (int li = 1; li < net.depth; ++li) {
-    dense<T>(cur, net.width, net.w_h[li], emb, net.epad, net.w_e[li],
-             net.b[li], net.width, nxt, stage);
-    __syncthreads();
-    T* t = cur; cur = nxt; nxt = t;
-  }
-  return cur;
-}
-
 
 // ===========================================================================
 // The Hopper layer primitive (bfloat16)
@@ -768,6 +632,243 @@ struct Layout {
     return Layout{raw + pad, a + pad};
   }
 };
+
+// ===========================================================================
+// The float32 layer primitive
+// ===========================================================================
+//
+// A block works on TM = 64 samples (half a liveness tile) with 256 threads
+// and plain f32 fmaf (no TF32): the JAX kernel's Precision.HIGHEST.
+//
+//   * Activations live in shared memory feature-major: row k of a buffer
+//     holds feature k of the block's 64 samples, F_LD floats apart (the
+//     4-float pad moves each row to the next 16-byte bank group).
+//   * A thread owns 8 samples x CS columns of a product (CS = N / 32 for a
+//     hidden layer): per k step it reads its samples as two float4 and its
+//     weights as float4 (or float2) from shared memory and makes 8 CS fmaf,
+//     4 of them per 32-bit word read. Thread (sg, cg) takes samples
+//     8 sg .. 8 sg + 7 and columns q VEC ncg + VEC cg + v; a quarter warp
+//     holds four sample groups and two column groups, so that neither its
+//     activation nor its weight loads meet a bank conflict.
+//   * Weights stream from device memory in chunks of KC rows (KC x N
+//     floats, contiguous in the (K, N) row-major matrix) through a ring of
+//     F_STAGES stages with cp.async: the next chunks are in flight while
+//     the current one is multiplied, and each weight byte leaves L2 once a
+//     block.
+//   * The backward's dW = A^T dy sums over the block's samples, so both of
+//     its operands are read along the sample axis: 4 samples as one float4
+//     a row, rows of a thread 8 apart (bank-conflict free), and the sums
+//     leave as one 16-byte (or 8-byte) vector atomic per 4 (2) columns.
+
+constexpr int F_THREADS = 256;
+constexpr int F_LD = TM + 4;               // floats a feature row
+constexpr int KC = 16;                     // weight rows a chunk
+constexpr int F_STAGES = 3;
+constexpr int F_STAGE_FLOATS = KC * MAX_WIDTH;
+constexpr int F_ACT_FLOATS = MAX_WIDTH * F_LD;
+constexpr int F_EMB_FLOATS = MAX_EPAD * F_LD;
+
+// this thread's sample group (0..7) and column group (0..31)
+__device__ __forceinline__ int f_sg() {
+  return ((threadIdx.x >> 7) << 2) | (threadIdx.x & 3);
+}
+__device__ __forceinline__ int f_cg() {
+  return (((threadIdx.x >> 5) & 3) << 3) | ((threadIdx.x >> 2) & 7);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                   smem_addr(dst)), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// Column layout of a thread's CS columns: Q groups of VEC neighbours.
+template <int CS> struct FCols {
+  static constexpr int VEC = CS % 4 == 0 ? 4 : 2;
+  static constexpr int Q = CS / VEC;
+};
+
+// wv[q VEC + v] = row[q VEC ncg + v], row already offset by VEC cg
+template <int CS>
+__device__ __forceinline__ void load_cols(float (&wv)[CS], const float* row,
+                                          int ncg) {
+  constexpr int VEC = FCols<CS>::VEC;
+#pragma unroll
+  for (int q = 0; q < FCols<CS>::Q; ++q) {
+    if constexpr (VEC == 4) {
+      const float4 t = *reinterpret_cast<const float4*>(row + q * 4 * ncg);
+      wv[4 * q] = t.x; wv[4 * q + 1] = t.y;
+      wv[4 * q + 2] = t.z; wv[4 * q + 3] = t.w;
+    } else {
+      const float2 t = *reinterpret_cast<const float2*>(row + q * 2 * ncg);
+      wv[2 * q] = t.x; wv[2 * q + 1] = t.y;
+    }
+  }
+}
+
+template <int CS> __device__ __forceinline__ void zero(float (&d)[8][CS]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int c = 0; c < CS; ++c) d[j][c] = 0.0f;
+}
+
+// acc (this thread's 8 samples x CS columns) += A W over K: A feature-major
+// in shared memory (K rows), W (K, N) row-major in device memory, K a
+// multiple of KC, N = CS ncg with ncg <= 32 (threads with cg >= ncg only
+// help with the copies). Ends with a block barrier, after which A and the
+// ring may be overwritten.
+template <int CS>
+__device__ void gemm_f32(float (&acc)[8][CS], const float* A,
+                         const float* __restrict__ W, int N, int K,
+                         float* ring) {
+  constexpr int VEC = FCols<CS>::VEC;
+  const int ncg = N / CS;
+  const int sg = f_sg(), cg = f_cg();
+  const bool active = cg < ncg;
+  const int chunk = KC * N;
+  const int nchunks = K / KC;
+  auto issue = [&](int c) {
+    if (c < nchunks) {
+      const float* src = W + (size_t)c * chunk;
+      float* dst = ring + (c % F_STAGES) * F_STAGE_FLOATS;
+      for (int i = threadIdx.x * 4; i < chunk; i += F_THREADS * 4)
+        cp_async16(dst + i, src + i);
+    }
+    cp_async_commit();   // empty groups too: the wait below counts groups
+  };
+#pragma unroll
+  for (int c = 0; c < F_STAGES - 1; ++c) issue(c);
+  for (int c = 0; c < nchunks; ++c) {
+    cp_async_wait<F_STAGES - 2>();
+    __syncthreads();     // chunk c is in for everyone; chunk c - 1 is done
+    issue(c + F_STAGES - 1);
+    if (active) {
+      const float* w = ring + (c % F_STAGES) * F_STAGE_FLOATS + VEC * cg;
+      const float* a = A + (size_t)c * KC * F_LD + 8 * sg;
+#pragma unroll
+      for (int kk = 0; kk < KC; ++kk) {
+        const float4 a0 = *reinterpret_cast<const float4*>(a + kk * F_LD);
+        const float4 a1 = *reinterpret_cast<const float4*>(a + kk * F_LD + 4);
+        const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+        float wv[CS];
+        load_cols<CS>(wv, w + kk * N, ncg);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int c2 = 0; c2 < CS; ++c2)
+            acc[j][c2] = fmaf(av[j], wv[c2], acc[j][c2]);
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// Epilogue of a hidden layer: h = relu(acc + b) written feature-major into
+// dst (which may be the layer's input: gemm_f32 ended with a barrier) and,
+// where `copy` is not null, into copy as (N, TM) rows in device memory.
+template <int CS>
+__device__ __forceinline__ void store_relu(const float (&acc)[8][CS],
+                                           const float* __restrict__ bias,
+                                           int N, float* dst, float* copy) {
+  constexpr int VEC = FCols<CS>::VEC;
+  const int ncg = N / CS;
+  const int sg = f_sg(), cg = f_cg();
+#pragma unroll
+  for (int q = 0; q < FCols<CS>::Q; ++q)
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) {
+      const int c = q * VEC * ncg + VEC * cg + v;
+      const float b = __ldg(bias + c);
+      const float4 h0 = make_float4(
+          fmaxf(acc[0][q * VEC + v] + b, 0.0f), fmaxf(acc[1][q * VEC + v] + b, 0.0f),
+          fmaxf(acc[2][q * VEC + v] + b, 0.0f), fmaxf(acc[3][q * VEC + v] + b, 0.0f));
+      const float4 h1 = make_float4(
+          fmaxf(acc[4][q * VEC + v] + b, 0.0f), fmaxf(acc[5][q * VEC + v] + b, 0.0f),
+          fmaxf(acc[6][q * VEC + v] + b, 0.0f), fmaxf(acc[7][q * VEC + v] + b, 0.0f));
+      float* d = dst + c * F_LD + 8 * sg;
+      *reinterpret_cast<float4*>(d) = h0;
+      *reinterpret_cast<float4*>(d + 4) = h1;
+      if (copy != nullptr) {
+        float* g = copy + (size_t)c * TM + 8 * sg;
+        *reinterpret_cast<float4*>(g) = h0;
+        *reinterpret_cast<float4*>(g + 4) = h1;
+      }
+    }
+}
+
+// One net's hidden layers at CS = width / 32; the last h is left in act.
+// store: where every layer's output is copied ((depth, width, TM) in device
+// memory), or null.
+template <int CS>
+__device__ void layers_f32(const NetDesc& net, float* act, const float* emb,
+                           float* ring, float* store) {
+  for (int li = 0; li < net.depth; ++li) {
+    float acc[8][CS];
+    zero(acc);
+    if (net.w_h[li] != nullptr)
+      gemm_f32<CS>(acc, act, static_cast<const float*>(net.w_h[li]),
+                   net.width, net.width, ring);
+    if (net.w_e[li] != nullptr)
+      gemm_f32<CS>(acc, emb, static_cast<const float*>(net.w_e[li]),
+                   net.width, net.epad, ring);
+    store_relu<CS>(acc, net.b[li], net.width, act,
+                   store != nullptr
+                       ? store + (size_t)li * net.width * TM : nullptr);
+    __syncthreads();
+  }
+}
+
+__device__ void run_net_f32(const NetDesc& net, float* act, const float* emb,
+                            float* ring, float* store) {
+  switch (net.width / 64) {
+    case 1: layers_f32<2>(net, act, emb, ring, store); break;
+    case 2: layers_f32<4>(net, act, emb, ring, store); break;
+    case 3: layers_f32<6>(net, act, emb, ring, store); break;
+    default: layers_f32<8>(net, act, emb, ring, store); break;
+  }
+}
+
+// Fourier embedding of pts (TM, 3) into emb, feature-major, rows < epad
+// (past the used columns: 0). lead3: the canonical embed starts with the
+// point itself; hann: per-frequency window weight (non-rigid embed) or null.
+__device__ void embed_f32(const float* pts, int multires, int epad,
+                          bool lead3, const float* hann, float* emb) {
+  const int lead = lead3 ? 3 : 0;
+  for (int idx = threadIdx.x; idx < TM * epad; idx += F_THREADS) {
+    const int c = idx / TM;
+    const int r = idx - c * TM;
+    float v = 0.0f;
+    if (c < lead) {
+      v = pts[r * 3 + c];
+    } else if (c < lead + 6 * multires) {
+      const int j = c - lead;
+      const int f = j / 6;
+      const int q = j - 6 * f;
+      const int d = q >= 3 ? q - 3 : q;
+      const float s = pts[r * 3 + d] * (float)(1 << f);
+      v = q >= 3 ? cosf(s) : sinf(s);
+      if (hann != nullptr) v *= hann[f];
+    }
+    emb[c * F_LD + r] = v;
+  }
+}
+
+// Narrow output layer: h (feature-major) row r dot column o of w_out (width,
+// n_out), plus b.
+__device__ __forceinline__ float out_f32(const float* h, int width, int n_out,
+                                         const float* __restrict__ w_out,
+                                         int r, int o, float b) {
+  float acc = 0.0f;
+  for (int k = 0; k < width; ++k)
+    acc = fmaf(h[k * F_LD + r], __ldg(w_out + k * n_out + o), acc);
+  return acc + b;
+}
 
 // Host side: descriptor tables handed over by the Python wrapper.
 inline void fill_net(NetDesc& d, const int* desc, const void* const* ptrs) {

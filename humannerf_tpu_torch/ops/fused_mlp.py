@@ -12,7 +12,9 @@ which replaces the Pallas TPU kernel `_fwd_call` / `_fwd_kernel`; it keeps
 the whole chain in shared memory. In bfloat16 a block of a persistent grid
 works on one liveness tile of `TILE` samples at a time with wgmma, its
 weights streamed into shared memory by cp.async.bulk in the chunks that
-`pack_kernel_weights` lays out; float32 works on half-tiles with fmaf.
+`pack_kernel_weights` lays out; float32 works on half-tiles with
+register-tiled fmaf, its weights streamed by cp.async in 16-row chunks of
+the (in, out) matrices.
 `query_points_plain` is its plain PyTorch version, built from models/mlps.py
 and models/embedders.py. A CPU tensor takes the plain version; a CUDA
 tensor launches the kernel or raises.
@@ -244,8 +246,9 @@ def pack_kernel_weights(plan: Plan, operands, backward: bool = False):
     16 rows (`epad`). In bfloat16 the hidden-layer matrices w_h / w_e are
     `swizzled_chunks`; w_out stays (width, n_out). In float32 every matrix
     stays (in, out), and backward=True adds w_h_t / w_e_t, the (out, in)
-    copies the float32 backward multiplies dy with (bfloat16 reads the
-    chunks transposed: there they are lists of None).
+    copies the float32 backward multiplies dy with: it streams their rows,
+    so that dy W^T reads each chunk as the forward reads W's (bfloat16
+    reads the chunks transposed: there they are lists of None).
     """
     dt = plan.compute_dtype
     chunked = dt == torch.bfloat16
@@ -464,11 +467,12 @@ def _hann_table(plan: Plan, hann_alpha: float):
     return (ctypes.c_float * _MAX_FREQ)(*hann)
 
 
-def _tile_counter(is_bf16: bool, device):
-    """The bfloat16 kernels' persistent grid takes tiles from a counter that
-    starts at zero on every launch; float32 needs none."""
+def _tile_counter(needed: bool, device):
+    """A persistent grid (both backward kernels, the bfloat16 forward) takes
+    its tiles from a counter that starts at zero on every launch; the
+    float32 forward needs none."""
     return torch.zeros((1,), dtype=torch.int32, device=device) \
-        if is_bf16 else None
+        if needed else None
 
 
 def launch_forward(plan: Plan, x_skel, hann_alpha: float, live, nets):
@@ -553,7 +557,7 @@ def launch_backward(plan: Plan, x_skel, g, hann_alpha: float, live, nets):
     if n == 0:
         return dx, grads
     is_bf16 = plan.compute_dtype == torch.bfloat16
-    next_tile = _tile_counter(is_bf16, dev)
+    next_tile = _tile_counter(True, dev)
     with torch.cuda.device(dev):
         grid = lib.fused_mlp_bwd_grid(int(is_bf16))
         if grid <= 0:
@@ -567,8 +571,7 @@ def launch_backward(plan: Plan, x_skel, g, hann_alpha: float, live, nets):
             x_skel.data_ptr(), g.data_ptr(), dx.data_ptr(), n,
             live.data_ptr(), _hann_table(plan, hann_alpha), int(is_bf16),
             1 if plan.skip_nr else 0, nr_desc, nr_ptrs, cnl_desc, cnl_ptrs,
-            scratch.data_ptr(), per_block, grid,
-            None if next_tile is None else next_tile.data_ptr(),
+            scratch.data_ptr(), per_block, grid, next_tile.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_mlp_backward failed to launch "

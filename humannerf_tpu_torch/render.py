@@ -6,16 +6,21 @@ checkpoint (the JAX package's pickle), iterates the matching dataset,
 renders frame by frame, scatters rays back into images, and writes PNG/mp4
 + PSNR/SSIM/LPIPS (`eval.metrics`) where ground truth exists. Without
 converted VGG weights (`lpips.weights`) LPIPS runs on the seeded random
-trunk and its values are not comparable to published ones.
+trunk and its values are not comparable to published ones. With
+RETURN_POSE=true in the environment it also dumps each frame's pose-refiner
+output, as the JAX package does.
 """
 
 from __future__ import annotations
 
 import os
+import pickle
 
 import numpy as np
+import torch
 
 from humannerf_tpu_torch.data.loader import Loader, create_dataset
+from humannerf_tpu_torch.models import mlps
 from humannerf_tpu_torch.models.network import HumanNeRF
 from humannerf_tpu_torch.train import checkpoint as ckpt
 from humannerf_tpu_torch.train.trainer import EvalRenderer
@@ -61,6 +66,18 @@ def resolve_render_mode(cfg, run_type: str, environ=None):
     return folder, ignore_nr
 
 
+def pose_refine_output(net, params, item) -> dict:
+    """The pose refiner's output for one frame's `dst_posevec` as numpy:
+    {'Rs': (total_bones - 1, 3, 3), 'rvec': (total_bones - 1, 3)}."""
+    posevec = torch.as_tensor(np.asarray(item["dst_posevec"], np.float32),
+                              device=net.device)
+    with torch.no_grad():
+        po = mlps.apply_pose_refiner(
+            params["pose_decoder"], posevec, total_bones=net.cfg.total_bones,
+            dtype=net.compute_dtype)
+    return {k: v.detach().cpu().numpy() for k, v in po.items()}
+
+
 def run(cfg, run_type: str, device=None):
     folder, cfg.ignore_non_rigid_motions = resolve_render_mode(cfg, run_type)
     if cfg.multihead.head_num > 1:
@@ -69,6 +86,10 @@ def run(cfg, run_type: str, device=None):
     if cfg.test.save_3d or cfg.test.save_3d_together:
         raise NotImplementedError(
             "3D dumps need full_outputs, not ported yet: ROADMAP.md item A5")
+    # RETURN_POSE=true dumps each frame's pose-refiner output, as the JAX
+    # package does, to <out_dir>/<folder>-pose_refine_output.pkl
+    return_pose = os.environ.get("RETURN_POSE", "False").lower() == "true"
+    pose_dump = {}
     net, params = load_network(cfg, device=device)
     renderer = EvalRenderer(net, chunk=min(cfg.chunk, 8192))
     dataset = create_dataset(cfg, run_type)
@@ -101,6 +122,8 @@ def run(cfg, run_type: str, device=None):
         W, H = item["img_width"], item["img_height"]
         truth = item.get("target_rgbs")
         name = item.get("frame_name", f"{step:06d}").replace("/", "-")
+        if return_pose and not cfg.pose_decoder_off:
+            pose_dump[name] = pose_refine_output(net, params, item)
         rgb_img, alpha_img, truth_img = unpack_to_image(
             W, H, item["ray_mask"], bg, out["rgb"], alpha=out["alpha"],
             truth=truth if truth is not None and truth.ndim == 2 else None)
@@ -117,6 +140,10 @@ def run(cfg, run_type: str, device=None):
             metrics.append(name if name not in metrics.per_image
                            else f"{name}_{step}", rgb_img, truth_img)
 
+    if pose_dump:
+        with open(os.path.join(out_dir, f"{folder}-pose_refine_output.pkl"),
+                  "wb") as f:
+            pickle.dump(pose_dump, f)
     writer.finalize()
     if metrics is not None:
         avg = metrics.finalize()

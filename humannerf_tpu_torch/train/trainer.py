@@ -15,12 +15,12 @@ checkpoint every save_checkpt_interval; 'iter_N' every save_model_interval.
 from __future__ import annotations
 
 import os
-import time
 
 import numpy as np
 import torch
 
 from humannerf_tpu_torch.models.network import HumanNeRF
+from humannerf_tpu_torch.utils.tracing import ExperimentLogger, StepTimer
 
 FRAME_KEYS = ("dst_Rs", "dst_Ts", "cnl_gtfms", "motion_weights_priors",
               "dst_posevec", "cnl_bbox_min_xyz", "cnl_bbox_scale_xyz",
@@ -57,20 +57,6 @@ def tree_map(fn, tree):
     if isinstance(tree, (list, tuple)):
         return [tree_map(fn, v) for v in tree]
     return fn(tree)
-
-
-class StepTimer:
-    """Steps per second over the steps since construction (host clock)."""
-
-    def __init__(self):
-        self.t0 = time.time()
-        self.n = 0
-
-    def tick(self, n: int = 1):
-        self.n += n
-
-    def rate(self) -> float:
-        return self.n / max(time.time() - self.t0, 1e-9)
 
 
 class EvalRenderer:
@@ -239,26 +225,37 @@ class Trainer:
             else self.iter + max_steps - 1
         os.makedirs(cfg.logdir, exist_ok=True)
         timer = StepTimer()
+        exp_log = ExperimentLogger(cfg.logdir)
         stream = loader.endless()
-        while self.iter <= maxiter:
-            batch = to_device_batch(next(stream), self.device)
-            loss, terms = self.train_step(batch)
-            timer.tick()
-            if self.iter % cfg.train.log_interval == 0:
-                items = " ".join(f"{k}: {float(v):.4f}"
-                                 for k, v in terms.items())
-                self.log(f"[iter {self.iter}] loss {float(loss):.4f} "
-                         f"[{items}] ({timer.rate():.2f} it/s)")
-            if (self.iter in (self.start_iter, 100, 300, 1000, 2500)
-                    or self.iter % cfg.progress.dump_interval == 0):
-                if "dataset" in cfg.progress:
-                    self.progress()
-            if (self.iter % cfg.train.save_checkpt_interval == 0
-                    or self.iter == self.start_iter):
-                self.save("latest", self.iter)
-            if cfg.save_all and self.iter % cfg.train.save_model_interval == 0:
-                self.save(f"iter_{self.iter}", self.iter)
-            self.iter += 1
+        try:
+            while self.iter <= maxiter:
+                batch = to_device_batch(next(stream), self.device)
+                loss, terms = self.train_step(batch)
+                timer.tick()
+                if self.iter % cfg.train.log_interval == 0:
+                    loss_v = float(loss)
+                    metrics = {k: float(v) for k, v in terms.items()}
+                    items = " ".join(f"{k}: {v:.4f}"
+                                     for k, v in metrics.items())
+                    self.log(f"[iter {self.iter}] loss {loss_v:.4f} "
+                             f"[{items}] ({timer.rate():.2f} it/s)")
+                    exp_log.log({"loss": loss_v, "it_per_sec": timer.rate(),
+                                 **metrics}, step=self.iter)
+                if (self.iter in (self.start_iter, 100, 300, 1000, 2500)
+                        or self.iter % cfg.progress.dump_interval == 0):
+                    try:
+                        self.progress()
+                    except FileNotFoundError:
+                        pass    # no progress dataset prepared (smoke runs)
+                if (self.iter % cfg.train.save_checkpt_interval == 0
+                        or self.iter == self.start_iter):
+                    self.save("latest", self.iter)
+                if (cfg.save_all
+                        and self.iter % cfg.train.save_model_interval == 0):
+                    self.save(f"iter_{self.iter}", self.iter)
+                self.iter += 1
+        finally:
+            exp_log.finish()
 
     def finalize(self):
         self.save("latest", self.iter)

@@ -39,19 +39,21 @@ def dev():
     return runtime.setup()
 
 
-def _setup(dev, nr_width, cnl_width, nr_depth, cnl_depth, dtype, skip_nr):
+def _setup(dev, nr_width, cnl_width, nr_depth, cnl_depth, dtype, skip_nr,
+           nr_multires=6, cnl_multires=10, cnl_skips=(1,)):
     plan = fused_mlp.Plan(
-        nr_depth=nr_depth, nr_skips=(2,), nr_width=nr_width, nr_multires=6,
-        cnl_depth=cnl_depth, cnl_skips=(1,), cnl_width=cnl_width,
-        cnl_multires=10, skip_nr=skip_nr, compute_dtype=dtype)
+        nr_depth=nr_depth, nr_skips=(2,), nr_width=nr_width,
+        nr_multires=nr_multires, cnl_depth=cnl_depth, cnl_skips=cnl_skips,
+        cnl_width=cnl_width, cnl_multires=cnl_multires, skip_nr=skip_nr,
+        compute_dtype=dtype)
     gen = torch.Generator().manual_seed(0)
     params = {
         "non_rigid_mlp": mlps.init_nonrigid_mlp(
-            gen, pos_embed_size=36, mlp_width=nr_width, mlp_depth=nr_depth,
-            skips=(2,), device=dev),
+            gen, pos_embed_size=6 * nr_multires, mlp_width=nr_width,
+            mlp_depth=nr_depth, skips=(2,), device=dev),
         "cnl_mlp": mlps.init_canonical_mlp(
-            gen, input_ch=63, mlp_depth=cnl_depth, mlp_width=cnl_width,
-            skips=(1,), device=dev),
+            gen, input_ch=3 + 6 * cnl_multires, mlp_depth=cnl_depth,
+            mlp_width=cnl_width, skips=cnl_skips, device=dev),
     }
     params["non_rigid_mlp"]["output"]["w"] *= 1e2     # mm-sized offsets
     for net, key in (("non_rigid_mlp", "block_mlps"), ("cnl_mlp",
@@ -217,6 +219,39 @@ def test_fused_mlp_backward_kernel_deepest_plan_ragged(dev, dtype):
         run(fused_mlp.query_points_plain)
     for k in gp:
         assert rel_l2(gk[k], gp[k]) <= 2 * GRAD_TOL[dtype], k
+
+
+# embedding widths (multires -> padded to epad = 16, 32, 48, 64 columns) and
+# two skip layers in the canonical net: the W_e products of both kernels,
+# forward (h W + emb W_e), dE += dy W_e^T and dW_e, at every epad the
+# float32 kernel's column groups take; a ragged last half-tile (n = 740)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("multires", [(2, 2), (4, 4), (6, 7), (10, 10)])
+def test_fused_mlp_kernels_embedding_widths(dev, dtype, multires):
+    plan, params, x, cc = _setup(dev, 128, 256, 4, 6, dtype, False,
+                                 nr_multires=multires[0],
+                                 cnl_multires=multires[1], cnl_skips=(1, 3))
+    params["non_rigid_mlp"]["output"]["w"] *= 1e-2
+    x = x[:740].contiguous()
+    g = torch.randn((740, 4), generator=torch.Generator().manual_seed(3)
+                    ).to(dev)
+
+    def run(query):
+        p = leafify(params)
+        xl = x.clone().requires_grad_(True)
+        out = query(plan, p, xl, 2.5, cc)
+        out.backward(g)
+        grads = flat_grads(p)
+        grads["dx"] = xl.grad
+        return out.detach(), grads
+    out, gk = run(fused_mlp.query_points_fused)
+    ref, gp = run(fused_mlp.query_points_plain)
+    assert bool(torch.isfinite(out).all())
+    assert float((out - ref).abs().max()) <= TOL[dtype]
+    for k in gp:
+        assert bool(torch.isfinite(gk[k]).all()), k
+        if float(gp[k].abs().max()) > 0:
+            assert rel_l2(gk[k], gp[k]) <= GRAD_TOL[dtype], k
 
 
 def _liveness_case(case, dev):
