@@ -29,6 +29,7 @@ gradients from the float32 step's.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
 import pickle
@@ -147,19 +148,46 @@ def kernel_device_ms(fn, kernel_key: str, iters: int) -> float:
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
+    # the profiler drops a record now and then (on the H100, for the ~7 ms
+    # backward kernel), and once in a while a whole window's records of a
+    # short kernel: the window is taken again, at most twice. More records
+    # than calls: the key names other kernels too
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        rows = [(e.self_device_time_total, e.count)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and kernel_key in e.key]
+        seen = sum(c for _, c in rows)
+        if 0 < seen <= iters:
+            return sum(t for t, _ in rows) / 1e3 / seen
+    fail(f"profiler saw {rows} launches of {kernel_key}, expected {iters}")
+
+
+def node_device_ms(make, iters: int):
+    """Device time of one autograd backward: every kernel launched by
+    torch.autograd.grad(out, leaves, cot) for the (out, cot, leaves) that
+    `make` returns, summed from torch.profiler and averaged over `iters`
+    graphs, all built before the profiled window so that no forward kernel
+    is counted. -> (ms, {kernel name: ms per backward})."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    out, cot, leaves = make()
+    torch.autograd.grad(out, leaves, cot)
+    graphs = [make() for _ in range(iters)]
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+        for out, cot, leaves in graphs:
+            torch.autograd.grad(out, leaves, cot)
         torch.cuda.synchronize()
-    rows = [(e.self_device_time_total, e.count) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and kernel_key in e.key]
-    # more records than calls: the key names other kernels too. Fewer: the
-    # profiler dropped a record (it does, now and then, on the H100 for the
-    # ~7 ms backward kernel), so the mean is taken over the records it kept
-    seen = sum(c for _, c in rows)
-    if not 0 < seen <= iters:
-        fail(f"profiler saw {rows} launches of {kernel_key}, expected {iters}")
-    return sum(t for t, _ in rows) / 1e3 / seen
+    rows = {e.key[:60]: e.self_device_time_total / 1e3 / iters
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0}
+    del graphs
+    return sum(rows.values()), dict(sorted(rows.items(), key=lambda r: -r[1]))
 
 
 # ---------------------------------------------------------------------------
@@ -195,14 +223,22 @@ def phase_build():
                 if key in name:
                     # K5 reads bf16 rows as unsigned short (mangled ItE)
                     name = key + ("<bf16>" if "bfloat" in name
-                                  or "ItE" in name else
-                                  "<f32>" if "IfE" in name else "")
+                                  or "ItE" in name or "Lb1E" in name else
+                                  "<f32>" if "IfE" in name
+                                  or "Lb0E" in name else "")
                     break
         elif name and ("Used" in ln or "spill" in ln):
             usage.setdefault(name, []).append(
                 ln.replace("ptxas info    :", "").strip())
+    # K3's launch at the default shape: 24 bones of 32^3, one cluster each
+    shape = (ctypes.c_int * 3)()
+    err = lib.resample_backward_shape(24, 32, 32, 32, ctypes.addressof(shape))
+    if err != 0:
+        fail(f"K3 cannot launch at 24 x 32^3 (error {err})")
     emit("build", seconds=round(time.time() - t0, 2),
          sources=[os.path.relpath(s) for s in _build.sources()],
+         k3_launch={"cluster_blocks": shape[0], "z_chunks": shape[1],
+                    "smem_bytes": shape[2]},
          k1_blocks_per_sm={"bf16": lib.fused_mlp_blocks_per_sm(1),
                            "f32": lib.fused_mlp_blocks_per_sm(0)},
          k2_resident_blocks={"bf16": lib.fused_mlp_bwd_grid(1),
@@ -371,6 +407,9 @@ def phase_kernels(net: HumanNeRF, params: dict, n_rays: int) -> dict:
               for k in ("rgb", "alpha", "depth"))
     finite = all(bool(torch.isfinite(out[k]).all()) for k in out)
     ms = time_ms(lambda: composite.composite(raw, fg, z, rays_d, bg), 2, 10)
+    device_ms = kernel_device_ms(
+        lambda: composite.composite(raw, fg, z, rays_d, bg),
+        "composite_kernel", iters=10)
     plain_ms = time_ms(lambda: raw2outputs(raw, fg, z, rays_d, bg), 2, 10)
     nbytes = R * S * 24 + R * 12 + R * 20
     t_bytes = nbytes / PEAK_BYTES * 1e3
@@ -382,8 +421,9 @@ def phase_kernels(net: HumanNeRF, params: dict, n_rays: int) -> dict:
         "launches": 0, "max_abs_err": err, "tolerance": K6_TOL, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": None, "rays": R, "samples": S,
-        "gbytes_per_s": nbytes / (ms * 1e-3) / 1e9}
+        "library_ms": None, "device_ms": device_ms,
+        "bound_share": max(t_ops, t_bytes) / device_ms, "rays": R,
+        "samples": S, "gbytes_per_s": nbytes / (device_ms * 1e-3) / 1e9}
     emit("kernels", **results["composite"], finite=finite)
     if not finite:
         fail("K6 produced non-finite values")
@@ -712,6 +752,54 @@ def mlp_grads(kernel: bool, plan, sub, x, g, alpha, cc, live) -> dict:
     return gr
 
 
+def k4_adds(flat, valid, d_acc):
+    """float4 atomics K4 makes on these inputs, with and without merging
+    runs (csrc/scatter.cu): a warp holds 8 consecutive samples, and a
+    channel quad makes one set of 8 corner adds for each run of them with a
+    non-zero cotangent, validity and one base voxel, against one set per
+    such sample. -> (merged, unmerged)."""
+    group = 8
+    n = flat.shape[0]
+    work = valid[:, None] & (d_acc.reshape(n, 4, 4) != 0).any(dim=2)
+    member = torch.zeros_like(work)
+    member[1:] = work[1:] & work[:-1] & (flat[1:] == flat[:-1])[:, None]
+    member[::group] = False
+    total = int(work.sum())
+    return 8 * (total - int(member.sum())), 8 * total
+
+
+def k3_library(shapes: dict, g3, G: int, d_vols_kernel):
+    """K3's yardstick: grid_sample (bilinear, zeros, align_corners=True, the
+    resample's semantics) of every bone at its warped grid, differentiated
+    by one backward call, grid_sampler_3d_backward, which yields d(vols) and
+    d(grid); dA and dT would need one more contraction of d(grid) with the
+    grid. Its operands are prepared outside the timing, the cotangent in
+    the (K, G^3) layout it wants. Float32. -> (device ms of the backward,
+    relative L2 of its d(vols) from the kernel's)."""
+    import torch.nn.functional as F
+    vols = shapes["vols"]
+    K = vols.shape[0]
+    with torch.no_grad():
+        grid = fused_warp.make_obs_grid(shapes["obs_min"], shapes["obs_max"],
+                                        G)
+        pos = torch.matmul(grid[None], shapes["Rs"].transpose(1, 2)) \
+            + shapes["Ts"][:, None, :]
+        coords = ((pos - shapes["cnl_min"]) * shapes["cnl_scale"] - 1.0) \
+            .reshape(K, 1, 1, -1, 3).contiguous()
+        cot = g3.t().contiguous().reshape(K, 1, 1, 1, -1)
+
+    def make():
+        v = vols.detach().clone().requires_grad_(True)
+        c = coords.clone().requires_grad_(True)
+        out = F.grid_sample(v[:, None], c, mode="bilinear",
+                            padding_mode="zeros", align_corners=True)
+        return out, cot, [v, c]
+    ms, _ = node_device_ms(make, iters=5)
+    out, cot_, leaves = make()
+    d_vols, _ = torch.autograd.grad(out, leaves, cot_)
+    return ms, rel_l2(d_vols, d_vols_kernel)
+
+
 def phase_kernels_backward(net: HumanNeRF, params: dict, params_init: dict,
                            shapes: dict) -> dict:
     """K2, K3 and K4 against their plain versions at the training step's
@@ -844,11 +932,24 @@ def phase_kernels_backward(net: HumanNeRF, params: dict, params_init: dict,
         errs = {k: rel_l2(gk[k], gp[k]) for k in gp}
         finite = all(bool(torch.isfinite(v).all()) for v in gk.values())
         worst = max(errs, key=errs.get)
-        ms = time_ms(lambda: fused_warp.resample_backward(
-            shapes["vols"], shapes["Rs"], shapes["Ts"], *boxes, G, dt, g3),
-            warm=2, iters=10)
+        def k3_wrapper():
+            fused_warp.resample_backward(shapes["vols"], shapes["Rs"],
+                                         shapes["Ts"], *boxes, G, dt, g3)
+        ms = time_ms(k3_wrapper, warm=2, iters=10)
+        device_ms = kernel_device_ms(k3_wrapper, "resample_bwd_kernel",
+                                     iters=10)
+        # the backward node as the training step runs it: the kernel and
+        # every launch of the wrapper's glue
+        node_ms, node_kernels = node_device_ms(
+            lambda: k3(fused_warp.resample_all_bones), iters=5)
         plain_ms = backward_ms(
             lambda: [k3(fused_warp.resample_all_bones_plain)[:2]], 1, 3)
+        library_ms, lib_err = None, None
+        if dt == torch.float32:
+            library_ms, lib_err = k3_library(shapes, g3, G, gk["d_vols"])
+            if not lib_err <= 1e-4:
+                bad.append(f"K3[{dt_name}]: d(vols) is {lib_err} from "
+                           f"grid_sample's")
         live_pairs = int((g3 != 0).sum())
         nbytes = g3.numel() * 4 + 2 * shapes["vols"].numel() * 4 + K * 96
         t_bytes = nbytes / PEAK_BYTES * 1e3
@@ -863,10 +964,16 @@ def phase_kernels_backward(net: HumanNeRF, params: dict, params_init: dict,
             "tolerance": tol, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None, "grid": G, "bones": K,
+            "library_ms": library_ms, "device_ms": device_ms,
+            "node_ms": node_ms,
+            "bound_share": max(t_ops, t_bytes) / device_ms,
+            "grid": G, "bones": K,
             "live_pair_share": live_pairs / g3.numel()}
         emit("kernels", **results[f"k3:{dt_name}"], finite=finite,
-             rel_l2=errs)
+             rel_l2=errs, node_kernels=node_kernels,
+             library="grid_sampler_3d_backward: d(vols) and d(grid); dA/dT "
+                     "need one more contraction" if library_ms else None,
+             vs_library_rel_l2=lib_err)
         if not finite or not errs[worst] <= tol:
             bad.append(f"K3[{dt_name}]: gradient {worst} is {errs[worst]} "
                        f"from the plain version's, limit {tol}")
@@ -917,10 +1024,19 @@ def phase_kernels_backward(net: HumanNeRF, params: dict, params_init: dict,
                 shapes["obs_min"], shapes["obs_max"], shapes["live_band"])
             d_acc = torch.randn((Nk, 16), generator=gen).to(dev) \
                 * (valid[:, None] & (fg_mask > 0)).float()
-            flat32, valid8 = flat.to(torch.int32), valid.to(torch.uint8)
-            w3c = w3.contiguous()
-        ms = time_ms(lambda: fused_warp.scatter_grad_volume(
-            flat32, w3c, valid8, d_acc, G), warm=2, iters=10)
+        def k4_wrapper():
+            fused_warp.scatter_grad_volume(flat, w3, valid, d_acc, G)
+        ms = time_ms(k4_wrapper, warm=2, iters=10)
+        device_ms = kernel_device_ms(k4_wrapper, "scatter_kernel", iters=10)
+
+        def k4_node():
+            # as the training step calls it: points without a gradient
+            Ul = U.detach().clone().requires_grad_(True)
+            acc = fused_warp._PackedSampleAcc.apply(
+                Ul, shapes["pts"], shapes["obs_min"], shapes["obs_max"],
+                shapes["live_band"])
+            return acc, d_acc, [Ul]
+        node_ms, node_kernels = node_device_ms(k4_node, iters=5)
         plain_ms = backward_ms(lambda: [k4("plain", False)[:2]], 1, 3)
         # the one library call that computes the same dU: index_add_ of the
         # eight weighted corner rows into the unpacked volume
@@ -933,13 +1049,16 @@ def phase_kernels_backward(net: HumanNeRF, params: dict, params_init: dict,
             dU_lib = torch.zeros((G ** 3, 16), device=dev)
             library_ms = time_ms(
                 lambda: dU_lib.zero_().index_add_(0, idx, src), 1, 3)
-            dU_k = fused_warp.scatter_grad_volume(flat32, w3c, valid8,
-                                                  d_acc, G)
+            dU_k = fused_warp.scatter_grad_volume(flat, w3, valid, d_acc, G)
             lib_err = rel_l2(dU_k.reshape(-1, 16),
                              dU_lib.zero_().index_add_(0, idx, src))
             del idx, src
         nz = int((d_acc.abs().sum(dim=1) > 0).sum())
-        nbytes = Nk * 81 + G ** 3 * 64
+        adds, adds_unmerged = k4_adds(flat, valid, d_acc)
+        # what the kernel must move: every validity byte; for a valid sample
+        # its int64 id, three fractions and 16 cotangents; dU written once
+        n_valid = int(valid.sum())
+        nbytes = Nk * 1 + n_valid * (8 + 12 + 64) + G ** 3 * 64
         t_bytes = nbytes / PEAK_BYTES * 1e3
         t_ops = nz * 8 * 13 * 3 / PEAK_F32_FLOPS * 1e3
         results[f"k4:{dt_name}"] = {
@@ -953,10 +1072,16 @@ def phase_kernels_backward(net: HumanNeRF, params: dict, params_init: dict,
             "tolerance": tol, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": library_ms, "n": Nk, "grid": G,
-            "nonzero_cotangent_share": nz / Nk, "vs_library_rel_l2": lib_err}
+            "library_ms": library_ms, "device_ms": device_ms,
+            "node_ms": node_ms,
+            "bound_share": max(t_ops, t_bytes) / device_ms, "n": Nk,
+            "grid": G, "nonzero_cotangent_share": nz / Nk,
+            "valid_share": n_valid / Nk, "vector_adds": adds,
+            "vector_adds_unmerged": adds_unmerged,
+            "adds_saved_share": 1.0 - adds / max(adds_unmerged, 1),
+            "vs_library_rel_l2": lib_err}
         emit("kernels", **results[f"k4:{dt_name}"], finite=finite,
-             rel_l2=errs)
+             rel_l2=errs, node_kernels=node_kernels)
         if not finite or not errs[worst] <= tol:
             bad.append(f"K4[{dt_name}]: gradient {worst} is {errs[worst]} "
                        f"from the plain version's, limit {tol}")
@@ -1402,7 +1527,13 @@ def phase_profile_train(tmp, params, item, opts=(), name="profile_train"):
          device_busy_share=busy_ms / step_ms,
          device_kernel_launches=sum(r[2] for r in rows),
          top=[{"name": k[:60], "ms": round(ms, 3), "calls": c}
-              for k, ms, c in rows[:16]])
+              for k, ms, c in rows[:16]],
+         hand_written={key: sum(ms for k, ms, _ in rows if key in k)
+                       for key in ("fused_mlp_bf16_kernel",
+                                   "fused_mlp_kernel",
+                                   "fused_mlp_bwd_bf16_kernel",
+                                   "fused_mlp_bwd_kernel",
+                                   "resample_bwd_kernel", "scatter_kernel")})
     if busy_ms <= 0:
         fail(f"{name}: the trace shows no device time")
 

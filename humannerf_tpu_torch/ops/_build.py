@@ -128,8 +128,9 @@ def load_library():
     lib.scatter_volume_backward.restype = ci
     lib.scatter_volume_backward.argtypes = [vp, vp, vp, vp, vp, ll, ci, vp]
     lib.resample_backward.restype = ci
-    lib.resample_backward.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci,
-                                      ci, ci, ci, vp]
+    lib.resample_backward.argtypes = [vp] * 11 + [ci] * 6 + [vp]
+    lib.resample_backward_shape.restype = ci
+    lib.resample_backward_shape.argtypes = [ci, ci, ci, ci, vp]
     lib.trilerp_forward.restype = ci
     lib.trilerp_forward.argtypes = [vp, ci, vp, vp, vp, vp, vp, ll, ci, vp]
     _lib = lib

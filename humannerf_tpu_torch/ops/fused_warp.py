@@ -23,8 +23,10 @@ for its backward:
     version: autograd through `sample_packed_volume`.
 
 On a CPU tensor the backward of either is autograd through its plain
-version; on a CUDA tensor it launches the kernel or raises. Both kernels are
-bound by bytes and atomics on the card, not by operations (see the sources).
+version; on a CUDA tensor it launches the kernel or raises. Both kernels
+take the tensors the step holds as they are (g in its (G^3, K) layout; the
+forward's int64 ids, bool mask and the unmasked cotangent) and are bound by
+their adds on the card (see the sources).
 """
 
 from __future__ import annotations
@@ -62,13 +64,19 @@ def obs_axes(obs_min: torch.Tensor, obs_max: torch.Tensor,
     return obs_min[:, None] + (obs_max - obs_min)[:, None] * t[None, :]
 
 
+def grid_from_axes(axes: torch.Tensor) -> torch.Tensor:
+    """(3, G) axis coordinates -> the regular grid's (G^3, 3) xyz points,
+    layout [z, y, x] to match the canonical volume layout."""
+    xs, ys, zs = axes
+    zg, yg, xg = torch.meshgrid(zs, ys, xs, indexing="ij")
+    return torch.stack([xg, yg, zg], dim=-1).reshape(-1, 3)
+
+
 def make_obs_grid(obs_min: torch.Tensor, obs_max: torch.Tensor,
                   grid_size: int) -> torch.Tensor:
     """Regular grid over the observation bbox, layout [z, y, x] to match the
     canonical volume layout. Returns (G^3, 3) xyz points."""
-    xs, ys, zs = obs_axes(obs_min, obs_max, grid_size)
-    zg, yg, xg = torch.meshgrid(zs, ys, xs, indexing="ij")
-    return torch.stack([xg, yg, zg], dim=-1).reshape(-1, 3)
+    return grid_from_axes(obs_axes(obs_min, obs_max, grid_size))
 
 
 def resample_bone_weights(vol: torch.Tensor, pos: torch.Tensor,
@@ -110,13 +118,15 @@ def resample_bone_weights(vol: torch.Tensor, pos: torch.Tensor,
 def resample_all_bones_plain(motion_weights, motion_scale_Rs, motion_Ts,
                              cnl_bbox_min_xyz, cnl_bbox_scale_xyz, obs_min,
                              obs_max, grid_size: int,
-                             dtype=torch.bfloat16) -> torch.Tensor:
+                             dtype=torch.bfloat16, axes=None) -> torch.Tensor:
     """All bones (K, D, H, W) resampled at the G^3 grid points, each warped
     by its bone's affine -> (G^3, K). One batched call (the JAX package loops
     over the bones at trace time; eagerly that loop would cost 24x the
     launches). Differentiable by autograd: the plain version of
-    `resample_all_bones`."""
-    grid = make_obs_grid(obs_min, obs_max, grid_size)     # (G^3, 3)
+    `resample_all_bones`. axes: the grid's `obs_axes`, if already made."""
+    if axes is None:
+        axes = obs_axes(obs_min, obs_max, grid_size)
+    grid = grid_from_axes(axes)                           # (G^3, 3)
     # per-bone warped positions of every grid point: grid @ A_k^T + t_k
     pos = torch.matmul(grid[None], motion_scale_Rs.transpose(1, 2)) \
         + motion_Ts[:, None, :]                           # (K, G^3, 3)
@@ -126,10 +136,12 @@ def resample_all_bones_plain(motion_weights, motion_scale_Rs, motion_Ts,
 
 def resample_backward(vols, motion_scale_Rs, motion_Ts, cnl_bbox_min_xyz,
                       cnl_bbox_scale_xyz, obs_min, obs_max, grid_size: int,
-                      dtype, g):
+                      dtype, g, axes=None):
     """Wrapper of the CUDA kernel `csrc/resample_bwd.cu`: g (G^3, K), the
-    cotangent of `resample_all_bones`' output -> (d(vols) (K, D, H, W),
-    dA (K, 3, 3), dT (K, 3)), all float32. CUDA tensors only."""
+    cotangent of `resample_all_bones`' output as autograd hands it -> (d(vols)
+    (K, D, H, W), dA (K, 3, 3), dT (K, 3)), all float32. The kernel writes
+    every entry of its outputs (no memset) and reads g in place. axes: the
+    grid's `obs_axes`, if the caller kept them. CUDA tensors only."""
     global resample_launches
     dev = g.device
     if dev.type != "cuda":
@@ -142,13 +154,16 @@ def resample_backward(vols, motion_scale_Rs, motion_Ts, cnl_bbox_min_xyz,
         raise ValueError(f"g must be ({G * G * G}, {K}), got {tuple(g.shape)}")
     if dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"compute dtype {dtype} has no kernel")
+    if axes is None:
+        axes = obs_axes(obs_min, obs_max, G)
     for name, t, shape in (("vols", vols, (K, D, H, W)), ("g", g, g.shape),
                            ("motion_scale_Rs", motion_scale_Rs, (K, 3, 3)),
                            ("motion_Ts", motion_Ts, (K, 3)),
                            ("cnl_bbox_min_xyz", cnl_bbox_min_xyz, (3,)),
                            ("cnl_bbox_scale_xyz", cnl_bbox_scale_xyz, (3,)),
                            ("obs_min", obs_min, (3,)),
-                           ("obs_max", obs_max, (3,))):
+                           ("obs_max", obs_max, (3,)),
+                           ("axes", axes, (3, G))):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, expected {dev}")
         if t.dtype != torch.float32:
@@ -156,23 +171,21 @@ def resample_backward(vols, motion_scale_Rs, motion_Ts, cnl_bbox_min_xyz,
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                              f"{tuple(shape)}")
-    vols_c = vols.detach().contiguous()
-    aff = torch.cat([motion_scale_Rs.detach().reshape(K, 9),
-                     motion_Ts.detach()], dim=1).contiguous()
-    boxes = torch.cat([cnl_bbox_min_xyz, cnl_bbox_scale_xyz]).contiguous()
-    axes = obs_axes(obs_min, obs_max, G).contiguous()
-    g_t = g.detach().t().contiguous()                     # (K, G^3)
-    dvols = torch.zeros_like(vols_c)
-    daff = torch.zeros_like(aff)
+    ins = [t.detach().contiguous() for t in (
+        vols, motion_scale_Rs, motion_Ts, cnl_bbox_min_xyz,
+        cnl_bbox_scale_xyz, axes, g)]
+    # each bone's least and greatest cotangent: the kernel sizes its
+    # fixed-point sums of d(vols) by them (one reduction launch)
+    ins += torch.aminmax(ins[-1], dim=0)
+    dvols = torch.empty_like(ins[0])
+    daff = torch.empty((K, 12), dtype=torch.float32, device=dev)
 
     from humannerf_tpu_torch.ops._build import load_library
     lib = load_library()
     with torch.cuda.device(dev):
         err = lib.resample_backward(
-            vols_c.data_ptr(), aff.data_ptr(), boxes.data_ptr(),
-            axes.data_ptr(), g_t.data_ptr(), dvols.data_ptr(),
-            daff.data_ptr(), K, D, H, W, G,
-            1 if dtype == torch.bfloat16 else 0,
+            *[t.data_ptr() for t in ins], dvols.data_ptr(), daff.data_ptr(),
+            K, D, H, W, G, 1 if dtype == torch.bfloat16 else 0,
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"resample_backward failed to launch "
@@ -189,27 +202,30 @@ class _ResampleAllBones(torch.autograd.Function):
     @staticmethod
     def forward(ctx, vols, Rs, Ts, cnl_min, cnl_scale, obs_min, obs_max,
                 grid_size, dtype):
+        axes = obs_axes(obs_min, obs_max, grid_size)
         ctx.save_for_backward(vols, Rs, Ts, cnl_min, cnl_scale, obs_min,
-                              obs_max)
+                              obs_max, axes)
         ctx.grid_size, ctx.dtype = grid_size, dtype
         return resample_all_bones_plain(vols, Rs, Ts, cnl_min, cnl_scale,
-                                        obs_min, obs_max, grid_size, dtype)
+                                        obs_min, obs_max, grid_size, dtype,
+                                        axes=axes)
 
     @staticmethod
     def backward(ctx, g):
-        vols, Rs, Ts, cnl_min, cnl_scale, obs_min, obs_max = ctx.saved_tensors
+        (vols, Rs, Ts, cnl_min, cnl_scale, obs_min, obs_max,
+         axes) = ctx.saved_tensors
         if g.device.type == "cpu":
             with torch.enable_grad():
                 leaves = [t.detach().requires_grad_(True)
                           for t in (vols, Rs, Ts)]
                 out = resample_all_bones_plain(
                     *leaves, cnl_min, cnl_scale, obs_min, obs_max,
-                    ctx.grid_size, ctx.dtype)
+                    ctx.grid_size, ctx.dtype, axes=axes)
                 dvols, dA, dT = torch.autograd.grad(out, leaves, g)
         else:
             dvols, dA, dT = resample_backward(
                 vols, Rs, Ts, cnl_min, cnl_scale, obs_min, obs_max,
-                ctx.grid_size, ctx.dtype, g.contiguous())
+                ctx.grid_size, ctx.dtype, g, axes=axes)
         return (dvols.to(vols.dtype), dA.to(Rs.dtype), dT.to(Ts.dtype),
                 None, None, None, None, None, None)
 
@@ -343,18 +359,19 @@ def sample_packed_volume(U8: torch.Tensor, pts: torch.Tensor, obs_min,
 
 def scatter_grad_volume(flat, w3, valid, d_acc, grid_size: int):
     """Wrapper of the CUDA kernel `csrc/scatter.cu`: the transpose of the
-    packed-volume read. flat (N,) int32 base-corner voxel ids, w3 (N, 3)
-    float32 fractions, valid (N,) uint8, d_acc (N, 16) float32 ->
-    dU (G, G, G, 16) float32. CUDA tensors only."""
+    packed-volume read, on the tensors the forward kept: flat (N,) int64
+    base-corner voxel ids, w3 (N, 3) float32 fractions, valid (N,) bool,
+    d_acc (N, 16) float32 unmasked (an invalid sample's row is never read)
+    -> dU (G, G, G, 16) float32. CUDA tensors only."""
     global scatter_launches
     dev = d_acc.device
     if dev.type != "cuda":
         raise ValueError(f"scatter_grad_volume needs CUDA tensors, got {dev}")
     n = d_acc.shape[0]
     G = int(grid_size)
-    for name, t, shape, dt in (("flat", flat, (n,), torch.int32),
+    for name, t, shape, dt in (("flat", flat, (n,), torch.int64),
                                ("w3", w3, (n, 3), torch.float32),
-                               ("valid", valid, (n,), torch.uint8),
+                               ("valid", valid, (n,), torch.bool),
                                ("d_acc", d_acc, (n, 16), torch.float32)):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, expected {dev}")
@@ -382,10 +399,11 @@ def scatter_grad_volume(flat, w3, valid, d_acc, grid_size: int):
     return dU
 
 
-def d_pts_closed_form(g8, w3, d_acc, scale):
+def d_pts_closed_form(g8, w3, d_acc, valid, scale):
     """d(pts) of the packed-volume read, through the corner weights only
     (floor and clip have zero gradient): g8 (N, 8, C) the gathered corner
-    rows, d_acc (N, C) the cotangent already masked by validity."""
+    rows, d_acc (N, C) the cotangent, valid (N,) bool; an invalid sample's
+    d(pts) is 0 whatever its cotangent holds."""
     d_w8 = (g8.to(torch.float32) * d_acc[:, None, :]).sum(dim=-1)   # (N, 8)
     fx = torch.stack([1.0 - w3[:, 0], w3[:, 0]], dim=1)
     fy = torch.stack([1.0 - w3[:, 1], w3[:, 1]], dim=1)
@@ -397,7 +415,8 @@ def d_pts_closed_form(g8, w3, d_acc, scale):
     d_wx = (d_w8 * fz[:, iz] * fy[:, iy] * sign[ix]).sum(dim=1)
     d_wy = (d_w8 * fz[:, iz] * fx[:, ix] * sign[iy]).sum(dim=1)
     d_wz = (d_w8 * fy[:, iy] * fx[:, ix] * sign[iz]).sum(dim=1)
-    return torch.stack([d_wx, d_wy, d_wz], dim=1) * scale[None, :]
+    d_pts = torch.stack([d_wx, d_wy, d_wz], dim=1) * scale[None, :]
+    return torch.where(valid[:, None], d_pts, torch.zeros_like(d_pts))
 
 
 class _PackedSampleAcc(torch.autograd.Function):
@@ -432,18 +451,18 @@ class _PackedSampleAcc(torch.autograd.Function):
                 grads = torch.autograd.grad(acc, leaves, d_acc)
             return (grads[0], grads[1] if need_pts else None, None, None,
                     None)
-        d_accm = torch.where(valid[:, None], d_acc.to(torch.float32),
-                             torch.zeros_like(d_acc, dtype=torch.float32))
+        # the step's own tensors: the kernel reads a sample's validity
+        # before its cotangent, so an invalid sample's never reaches dU
+        d_acc = d_acc.contiguous()
         G = U.shape[0]
-        dU = scatter_grad_volume(flat.to(torch.int32), w3.contiguous(),
-                                 valid.to(torch.uint8), d_accm.contiguous(),
-                                 G).to(U.dtype)
+        dU = scatter_grad_volume(flat, w3, valid, d_acc, G).to(U.dtype)
         d_pts = None
         if need_pts:
             C = U.shape[-1]
             g8 = build_packed_volume(U).reshape(G * G * G, 8 * C)[flat] \
                 .reshape(-1, 8, C)
-            d_pts = d_pts_closed_form(g8, w3, d_accm, scale).to(pts.dtype)
+            d_pts = d_pts_closed_form(g8, w3, d_acc, valid, scale) \
+                .to(pts.dtype)
         return dU, d_pts, None, None, None
 
 

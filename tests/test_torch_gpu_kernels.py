@@ -332,9 +332,12 @@ def test_fused_mlp_backward_wrapper_refuses_on_cuda(dev):
         fused_mlp.launch_forward(plan, x.cpu(), 4.3, None, nets)
 
 
-def _resample_inputs(dev, K, D, G):
+def _resample_inputs(dev, K, D, G, cubic=False):
+    """K bone volumes (D, D + 2, D + 4), or (D, D, D) when `cubic`, seeded
+    affines and a cotangent that is zero at half of the grid points."""
     rng = np.random.RandomState(3)
-    vols = rng.rand(K, D, D + 2, D + 4).astype(np.float32)
+    shape = (K, D, D, D) if cubic else (K, D, D + 2, D + 4)
+    vols = rng.rand(*shape).astype(np.float32)
     vols[:, :, :2] = 0.0
     Rs = np.stack([np.eye(3) * rng.uniform(0.8, 1.2)
                    + 0.1 * rng.randn(3, 3) for _ in range(K)])
@@ -349,21 +352,30 @@ def _resample_inputs(dev, K, D, G):
     return t(vols), t(Rs), t(Ts), [t(b) for b in boxes], t(cot)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("shape", [(3, 8, 10), (24, 16, 21), (5, 32, 12)])
-def test_resample_backward_kernel_matches_autograd(dev, dtype, shape):
-    K, D, G = shape
-    vols, Rs, Ts, boxes, cot = _resample_inputs(dev, K, D, G)
+def _resample_grads(fn, vols, Rs, Ts, boxes, G, dtype, cot):
+    leaves = [t.clone().requires_grad_(True) for t in (vols, Rs, Ts)]
+    fn(*leaves, *boxes, G, dtype).backward(cot)
+    return [t.grad for t in leaves]
 
-    def run(fn):
-        leaves = [t.clone().requires_grad_(True) for t in (vols, Rs, Ts)]
-        fn(*leaves, *boxes, G, dtype).backward(cot)
-        return [t.grad for t in leaves]
+
+# (K, D, G, cubic volumes): odd volumes; the default model's shape (24 bones,
+# 32^3, G = 48) and a G that is no multiple of the kernel's 512-thread
+# stride (37); a volume too large for one block's shared memory, which the
+# kernel cuts into z-chunks (64 x 66 x 68)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(3, 8, 10, False), (24, 16, 21, False),
+                                   (5, 32, 12, False), (24, 32, 48, True),
+                                   (24, 32, 37, True), (2, 64, 20, False)])
+def test_resample_backward_kernel_matches_autograd(dev, dtype, shape):
+    K, D, G, cubic = shape
+    vols, Rs, Ts, boxes, cot = _resample_inputs(dev, K, D, G, cubic)
     before = fused_warp.resample_launches
-    gk = run(fused_warp.resample_all_bones)
+    gk = _resample_grads(fused_warp.resample_all_bones, vols, Rs, Ts, boxes,
+                         G, dtype, cot)
     torch.cuda.synchronize()
     assert fused_warp.resample_launches == before + 1
-    gp = run(fused_warp.resample_all_bones_plain)
+    gp = _resample_grads(fused_warp.resample_all_bones_plain, vols, Rs, Ts,
+                         boxes, G, dtype, cot)
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     for name, a, b in zip(("d_vols", "dA", "dT"), gk, gp):
         assert a.shape == b.shape and a.dtype == torch.float32
@@ -371,7 +383,36 @@ def test_resample_backward_kernel_matches_autograd(dev, dtype, shape):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("shape", [(1000, 8), (4097, 16), (30000, 48)])
+@pytest.mark.parametrize("case", ["all_zero", "one_pair"])
+def test_resample_backward_kernel_cotangent_patterns(dev, dtype, case):
+    """A cotangent of zeros gives exactly zero gradients (the kernel writes
+    every entry itself: its outputs are not zeroed first); a single non-zero
+    (point, bone) pair touches that bone alone."""
+    K, D, G = 24, 32, 48
+    vols, Rs, Ts, boxes, cot = _resample_inputs(dev, K, D, G, cubic=True)
+    cot = torch.zeros_like(cot)
+    if case == "one_pair":
+        cot[(20 * G + 24) * G + 24, 7] = 1.5        # a point inside bone 7
+    gk = _resample_grads(fused_warp.resample_all_bones, vols, Rs, Ts, boxes,
+                         G, dtype, cot)
+    gp = _resample_grads(fused_warp.resample_all_bones_plain, vols, Rs, Ts,
+                         boxes, G, dtype, cot)
+    if case == "all_zero":
+        for a in gk:
+            assert float(a.abs().max()) == 0.0
+        return
+    others = torch.ones(K, dtype=torch.bool, device=dev)
+    others[7] = False
+    assert float(gp[0][7].abs().max()) > 0           # the pair is live
+    for a, b in zip(gk, gp):
+        assert float(a[others].abs().max()) == 0.0
+        tol = 1e-4 if dtype == torch.float32 else 2e-2
+        assert rel_l2(a[7], b[7]) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(1000, 8), (4097, 16), (30000, 48),
+                                   (1, 8)])
 def test_scatter_kernel_matches_autograd(dev, dtype, shape):
     N, G = shape
     rng = np.random.RandomState(4)
@@ -379,11 +420,24 @@ def test_scatter_kernel_matches_autograd(dev, dtype, shape):
     U[..., 12] = U[..., 12].abs() + 0.2
     pts = torch.from_numpy(rng.uniform(-1.45, 1.45, (N, 3))
                            .astype(np.float32)).to(dev)
+    if N == 1:
+        pts[0] = 0.1                                 # one valid sample
     lo = torch.tensor([-1.2, -1.2, -1.2], device=dev)
     hi = torch.tensor([1.2, 1.25, 1.15], device=dev)
     live = torch.from_numpy(rng.rand(N) > 0.3).to(dev)
+    if N == 1:
+        live[0] = True
     cot = torch.from_numpy(rng.randn(N, 4).astype(np.float32)).to(dev)
+    dU, dp, dU_p, dp_p = _scatter_both(U, pts, lo, hi, live, cot, dtype)
+    assert dU.dtype == dtype and dU.shape == (G, G, G, 16)
+    tol = 1e-4 if dtype == torch.float32 else 5e-2
+    assert rel_l2(dU, dU_p) <= tol and rel_l2(dp, dp_p) <= tol
+    assert float(dp[~live].abs().sum()) == 0.0
 
+
+def _scatter_both(U, pts, lo, hi, live, cot, dtype):
+    """(dU, d(pts)) through the kernel (one launch) and through autograd of
+    the plain version."""
     def run(kernel):
         Ul = U.to(dtype).requires_grad_(True)
         pl_ = pts.clone().requires_grad_(True)
@@ -398,22 +452,79 @@ def test_scatter_kernel_matches_autograd(dev, dtype, shape):
     dU, dp = run(True)
     torch.cuda.synchronize()
     assert fused_warp.scatter_launches == before + 1
-    dU_p, dp_p = run(False)
-    assert dU.dtype == dtype and dU.shape == (G, G, G, 16)
-    tol = 1e-4 if dtype == torch.float32 else 5e-2
-    assert rel_l2(dU, dU_p) <= tol and rel_l2(dp, dp_p) <= tol
-    assert float(dp[~live].abs().max()) == 0.0
+    return (dU, dp) + run(False)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", ["long_runs", "clipped_corner",
+                                  "nan_on_invalid"])
+def test_scatter_kernel_edge_cases(dev, dtype, case):
+    """long_runs: rays of 128 samples over a fine grid's few cells, so most
+    consecutive samples share a base voxel (the kernel merges their adds);
+    clipped_corner: samples on the grid's last plane along each axis (the
+    box and G make their coordinate exactly G - 1), whose base corner is
+    clipped to G - 2; nan_on_invalid: the cotangent of every invalid sample
+    is NaN, which the kernel never reads."""
+    G, R, S = 16, 64, 128
+    rng = np.random.RandomState(6)
+    U = torch.from_numpy(rng.randn(G, G, G, 16).astype(np.float32)).to(dev)
+    U[..., 12] = U[..., 12].abs() + 0.2
+    lo = torch.full((3,), -1.5, device=dev)       # scale (G - 1) / 3 = 5
+    hi = torch.full((3,), 1.5, device=dev)
+    if case == "long_runs":
+        o = rng.uniform(-1.0, 1.0, (R, 1, 3))
+        d = rng.randn(R, 1, 3) * 0.15        # a ray crosses ~2 cells
+        t = np.linspace(0.0, 1.0, S)[None, :, None]
+        pts = (o + d * t).reshape(-1, 3)
+    elif case == "clipped_corner":
+        pts = rng.uniform(-1.4, 1.4, (R * S, 3))
+        pts = np.where(rng.rand(R * S, 3) < 0.5, 1.5, pts)
+    else:
+        pts = rng.uniform(-1.8, 1.8, (R * S, 3))
+    pts = torch.from_numpy(pts.astype(np.float32)).to(dev)
+    live = torch.from_numpy(rng.rand(R * S) > 0.2).to(dev)
+    cot = torch.from_numpy(rng.randn(R * S, 4).astype(np.float32)).to(dev)
+    dtype_tol = 1e-4 if dtype == torch.float32 else 5e-2
+    if case != "nan_on_invalid":
+        dU, dp, dU_p, dp_p = _scatter_both(U, pts, lo, hi, live, cot, dtype)
+        assert rel_l2(dU, dU_p) <= dtype_tol and rel_l2(dp, dp_p) <= dtype_tol
+        if case == "long_runs":
+            _, (flat, _, valid, _) = fused_warp.packed_acc(
+                fused_warp.build_packed_volume(U), pts, lo, hi, live)
+            f = flat[valid]
+            assert float((f[1:] == f[:-1]).float().mean()) > 0.5
+        else:
+            assert float(dU[-1].float().abs().max()) > 0   # the last plane
+        return
+    # the kernel's own backward, handed NaN where a sample is invalid
+    Ul = U.to(dtype).requires_grad_(True)
+    acc = fused_warp._PackedSampleAcc.apply(Ul, pts, lo, hi, live)
+    _, (_, _, valid, _) = fused_warp.packed_acc(
+        fused_warp.build_packed_volume(U), pts, lo, hi, live)
+    assert bool((~valid).any())
+    d = torch.from_numpy(rng.randn(R * S, 16).astype(np.float32)).to(dev)
+    d_nan = torch.where(valid[:, None], d, torch.full_like(d, float("nan")))
+    dU, = torch.autograd.grad(acc, [Ul], d_nan)
+    Up = U.to(dtype).requires_grad_(True)
+    acc_p, _ = fused_warp.packed_acc(fused_warp.build_packed_volume(Up), pts,
+                                     lo, hi, live)
+    dU_p, = torch.autograd.grad(
+        acc_p, [Up], torch.where(valid[:, None], d, torch.zeros_like(d)))
+    assert bool(torch.isfinite(dU.float()).all())
+    assert rel_l2(dU, dU_p) <= dtype_tol
 
 
 def test_warp_backward_wrappers_refuse_on_cuda(dev):
-    flat = torch.zeros(8, dtype=torch.int32, device=dev)
+    flat = torch.zeros(8, dtype=torch.int64, device=dev)
     w3 = torch.zeros((8, 3), device=dev)
-    valid = torch.ones(8, dtype=torch.uint8, device=dev)
+    valid = torch.ones(8, dtype=torch.bool, device=dev)
     d = torch.zeros((8, 16), device=dev)
     assert fused_warp.scatter_grad_volume(flat, w3, valid, d, 4).shape \
         == (4, 4, 4, 16)
     with pytest.raises(TypeError):
-        fused_warp.scatter_grad_volume(flat.long(), w3, valid, d, 4)
+        fused_warp.scatter_grad_volume(flat.int(), w3, valid, d, 4)
+    with pytest.raises(TypeError):
+        fused_warp.scatter_grad_volume(flat, w3, valid.to(torch.uint8), d, 4)
     with pytest.raises(ValueError, match="shape"):
         fused_warp.scatter_grad_volume(flat, w3, valid, d[:, :13], 4)
     with pytest.raises(ValueError, match="contiguous"):

@@ -136,7 +136,9 @@ def test_closed_form_d_pts_and_scatter_inputs(setup):
     ref_pts, = torch.autograd.grad(acc, [pt], d_acc)
     d_accm = torch.where(valid[:, None], d_acc, torch.zeros_like(d_acc))
     g8 = U8.reshape(G ** 3, 128)[flat].reshape(-1, 8, 16)
-    got = tfw.d_pts_closed_form(g8, w3.detach(), d_accm, scale)
+    # the cotangent as the step hands it, whatever an invalid row holds
+    d_raw = torch.where(valid[:, None], d_acc, torch.full_like(d_acc, np.nan))
+    got = tfw.d_pts_closed_form(g8, w3.detach(), d_raw, valid, scale)
     np.testing.assert_allclose(got.numpy(), ref_pts.numpy(), rtol=0,
                                atol=1e-4 * float(ref_pts.abs().max()))
     # the kernel's sum, by hand: eight weighted corner rows per valid sample
@@ -159,9 +161,9 @@ def test_closed_form_d_pts_and_scatter_inputs(setup):
 def test_scatter_wrapper_refuses_cpu_tensors_and_bad_volume(setup):
     U, pts, omin, omax, *_ = setup
     with pytest.raises(ValueError, match="CUDA"):
-        tfw.scatter_grad_volume(torch.zeros(4, dtype=torch.int32),
+        tfw.scatter_grad_volume(torch.zeros(4, dtype=torch.int64),
                                 torch.zeros(4, 3),
-                                torch.zeros(4, dtype=torch.uint8),
+                                torch.zeros(4, dtype=torch.bool),
                                 torch.zeros(4, 16), G)
     with pytest.raises(ValueError, match="16 channels"):
         tfw.sample_packed_grad(torch.zeros(G, G, G, 40),
